@@ -1,0 +1,82 @@
+"""``anonymize`` CLI over kaldi-style data dirs (port of ``satpu.bin.anonymize``).
+
+Config: INI with ``${:var}`` interpolation, an ``[anonymize]`` section with
+the same keys as the flags. Runs on ``--device`` (default ``cuda``; raises
+when CUDA is absent unless ``--device cpu`` is given).
+
+Usage:
+  python -m satpu_torch.bin.anonymize --checkpoint model.pt --directory data/X
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+
+from ..utils import config as cfg
+
+
+@dataclasses.dataclass
+class AnonymizeOpts(cfg.Opts):
+    checkpoint: str = ""
+    directory: str = ""
+    results_dir: str = ""
+    target_selection_algorithm: str = "constant"
+    target_constant_spkid: str = ""
+    f0_transformation: str = ""
+    batch_size: int = 32
+    new_datadir_suffix: str = "_anon"
+    seed: int = 0
+    num_shards: int = 1
+    shard: int = 0
+    # serving compute dtype override
+    compute_dtype: str = "bfloat16"
+    device: str = "cuda"
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="satpu_torch %(levelname)s: %(message)s")
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config", default="", help="INI config path")
+    args, rest = parser.parse_known_args(argv)
+
+    opts = AnonymizeOpts()
+    if args.config:
+        ini = cfg.load_ini(args.config)
+        if "anonymize" in ini:
+            opts.load_from_config(ini["anonymize"])
+    opts.load_from_args(rest)
+
+    if not opts.checkpoint or not opts.directory:
+        print("need --checkpoint and --directory", file=sys.stderr)
+        return 2
+
+    from .. import infer_helper
+    from .pipeline import process_data
+
+    model, meta = infer_helper.load_model(
+        opts.checkpoint, option_args=infer_helper.serving_option_args(
+            opts.compute_dtype or "bfloat16"), device=opts.device)
+    speakers = meta.get("speakers") or [str(i) for i in range(model.cfg.num_speakers)]
+    results_dir = opts.results_dir or os.path.join(
+        opts.directory.rstrip("/") + opts.new_datadir_suffix, "wavs")
+
+    def progress(done, total):
+        if done % 50 < opts.batch_size or done == total:
+            logging.info("progress: %d/%d", done, total)
+
+    out_dir = process_data(
+        model, speakers, opts.directory, results_dir,
+        target_selection_algorithm=opts.target_selection_algorithm,
+        target_constant_spkid=opts.target_constant_spkid,
+        batch_size=opts.batch_size, f0_transformation=opts.f0_transformation,
+        seed=opts.seed, new_datadir_suffix=opts.new_datadir_suffix,
+        num_shards=opts.num_shards, shard=opts.shard, progress_cb=progress)
+    logging.info("done: %s", out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
