@@ -1,4 +1,5 @@
-"""satpu_torch — the PyTorch/CUDA port of satpu's anonymization serving path.
+"""satpu_torch — the PyTorch/CUDA port of satpu: anonymization serving and
+LF-MMI chain training of its bottleneck extractor.
 
 A package beside ``satpu`` (the JAX reference, which it never imports) that
 runs the same models with PyTorch on an NVIDIA GPU. Each module mirrors its
@@ -8,12 +9,16 @@ one against it on the same weights and inputs.
 
 - ``satpu_torch.ops``    fbank, CMVN, YAAPT F0 (its SHC band is the
                          hand-written CUDA kernel ``csrc/shc.cu``).
-- ``satpu_torch.models`` TDNN-F ASR-BN extractor, HiFi-GAN generator, the
-                         anonymizer, and the weight bridge from satpu
-                         variables.
+- ``satpu_torch.models`` TDNN-F ASR-BN extractor (inference and training),
+                         HiFi-GAN generator, the anonymizer, and the weight
+                         bridge from satpu variables.
+- ``satpu_torch.chain``  FST and den-graph code, the chain objective (its den
+                         forward-backward is the CUDA kernel pair
+                         ``csrc/den_fb.cu``), NG-SGD, egs and the trainer.
 - ``satpu_torch.utils``  kaldi data dirs, INI/dataclass options,
-                         checkpoints, the CUDA build helper.
-- ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline.
+                         checkpoints, metrics log, the CUDA build helper.
+- ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, and the
+                         ``train_asr`` CLI.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
 when CUDA is absent rather than falling back.

@@ -4,7 +4,9 @@ fbank80 -> UttCMVN -> replicate-pad -> TDNNF x12 (subsample /2, then /1.5
 after the BN layer) -> chain/xent heads; ``extract_bn`` returns the
 stage-1 prefinal bottleneck (dim 256), vector-quantized for the "vq"
 variant. Public functions keep satpu's layouts ([B, T, C]); the layers run
-in NCW.
+in NCW. In training mode (``net.train()``) the forward is satpu's
+``train=True``: dropout after every hidden layer, batch statistics, the VQ
+EMA update, and natural-gradient affines where the config asks for them.
 """
 from __future__ import annotations
 
@@ -44,11 +46,11 @@ class TDNNFNetConfig:
     codebook_size: int = 0
     # "float32" | "bfloat16": matmul compute dtype for serving
     compute_dtype: str = "float32"
-    # training-only fields of satpu's config, accepted so its build params
-    # load; inference reads none of them
+    # training: dropout after each hidden layer; NG-SGD on every affine
     p_dropout: float = 0.1
-    epsilon: float = 0.0
     natural_gradient: bool = False
+    # satpu's "dp" bottleneck scale, accepted so its build params load
+    epsilon: float = 0.0
 
 
 class TDNNFNet(nn.Module):
@@ -64,29 +66,27 @@ class TDNNFNet(nn.Module):
         ksa, ssa = list(c.kernel_size_list_after), list(c.subsampling_factor_list_after)
         self.padding = get_padding(ks, ss) // 2
         self.padding_after = get_padding(ksa, ssa) // 2
-        dt = c.compute_dtype
+        kw = dict(compute_dtype=c.compute_dtype, natural_gradient=c.natural_gradient)
         self.tdnn1 = TDNNFBatchNorm(c.num_mel_bins, c.hidden_dim, c.bottleneck_dim,
-                                    context_len=ks[0], subsampling_factor=ss[0],
-                                    compute_dtype=dt)
+                                    context_len=ks[0], subsampling_factor=ss[0], **kw)
         layers = [TDNNFBatchNorm(c.hidden_dim, c.hidden_dim, c.bottleneck_dim,
-                                 context_len=ks[i], subsampling_factor=ss[i],
-                                 compute_dtype=dt)
+                                 context_len=ks[i], subsampling_factor=ss[i], **kw)
                   for i in range(1, len(ks) - 1)]
         bfunc = (VQBottleneck(c.codebook_size, c.prefinal_bottleneck_dim)
                  if c.bottleneck == "vq" else None)
         layers.append(TDNNFBatchNorm(c.hidden_dim, c.hidden_dim, c.prefinal_bottleneck_dim,
                                      context_len=ks[-1], subsampling_factor=ss[-1],
-                                     bypass_scale=0.0, bottleneck_func=bfunc,
-                                     compute_dtype=dt))
+                                     bypass_scale=0.0, bottleneck_func=bfunc, **kw))
         self.tdnnfs = nn.ModuleList(layers)
         self.tdnnfs_after = nn.ModuleList(
             TDNNFBatchNorm(c.hidden_dim, c.hidden_dim, c.bottleneck_dim,
-                           context_len=ksa[i], subsampling_factor=ssa[i], compute_dtype=dt)
+                           context_len=ksa[i], subsampling_factor=ssa[i], **kw)
             for i in range(len(ksa)))
         self.prefinal_chain = TDNNFBatchNorm(c.hidden_dim, c.hidden_dim,
-                                             c.prefinal_bottleneck_dim, compute_dtype=dt)
+                                             c.prefinal_bottleneck_dim, **kw)
         self.prefinal_xent = TDNNFBatchNorm(c.hidden_dim, c.hidden_dim,
-                                            c.prefinal_bottleneck_dim, compute_dtype=dt)
+                                            c.prefinal_bottleneck_dim, **kw)
+        dt = c.compute_dtype
         self.chain_output = NaturalAffineTransform(c.hidden_dim, c.output_dim, compute_dtype=dt)
         self.xent_output = NaturalAffineTransform(c.hidden_dim, c.output_dim, compute_dtype=dt)
 
@@ -105,22 +105,42 @@ class TDNNFNet(nn.Module):
             x = utt_cmvn(x)
         return pad_input_replicate(x.transpose(1, 2), self.padding).transpose(1, 2)
 
-    def _stage1(self, wav: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.tdnn1(self.features(wav, lengths).transpose(1, 2))
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        p = self.cfg.p_dropout
+        if not self.training or p <= 0:
+            return x
+        keep = 1.0 - p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def _stage1(self, wav: torch.Tensor, lengths: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                dropout: bool = False) -> torch.Tensor:
+        drop = (lambda x: self._dropout(x, generator)) if dropout else (lambda x: x)
+        x = drop(self.tdnn1(self.features(wav, lengths).transpose(1, 2)))
         for layer in self.tdnnfs[:-1]:
-            x = layer(x)
+            x = drop(layer(x))
         return x
 
-    def forward(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None):
-        """-> (chain_out [B, T_sub, pdf], xent log-softmax [B, T_sub, pdf])."""
-        x = self.tdnnfs[-1](self._stage1(wav, lengths))
+    def forward(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """-> (chain_out [B, T_sub, pdf], xent log-softmax [B, T_sub, pdf]).
+
+        In training mode the tuple has a third entry, the auxiliary outputs
+        ``{"vq_loss", "vq_perplexity"}`` of the VQ bottleneck (empty without
+        one); dropout draws from ``generator`` (torch's default one if None)."""
+        x = self._dropout(self.tdnnfs[-1](self._stage1(wav, lengths, generator, True)),
+                          generator)
         x = pad_input_replicate(x, self.padding_after)
         for layer in self.tdnnfs_after:
-            x = layer(x)
+            x = self._dropout(layer(x), generator)
         chain_out = self.chain_output(self.prefinal_chain(x))
         xent_out = self.xent_output(self.prefinal_xent(x))
-        return (chain_out.transpose(1, 2),
-                torch.log_softmax(xent_out, dim=1).transpose(1, 2))
+        out = (chain_out.transpose(1, 2), torch.log_softmax(xent_out, dim=1).transpose(1, 2))
+        if not self.training:
+            return out
+        bfunc = self.tdnnfs[-1].tdnn.bottleneck_func
+        return out + (dict(bfunc.aux) if bfunc is not None else {},)
 
     def extract_bn(self, wav: torch.Tensor,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -14,6 +14,10 @@ Flax scope names become module paths: ``tdnnf{i}`` -> ``tdnnfs.{i-1}``, the
 BN layer ``tdnnf_bn`` -> ``tdnnfs.{n}``, ``tdnnf_after{k}`` ->
 ``tdnnfs_after.{k}``, ``ups_{i}`` / ``resblocks_{i}`` / ``convs1_{j}`` ->
 ``ups.{i}`` / ``resblocks.{i}`` / ``convs1.{j}``.
+
+``ng_states_from_satpu`` carries a TDNNFNet's ``ng_state`` collection (the
+natural-gradient preconditioners, which the port keeps in its trainer, not
+in the state_dict) across under the same module paths.
 """
 from __future__ import annotations
 
@@ -89,3 +93,21 @@ def from_satpu_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                  if kind == "tdnnf" and (m := _MID_LAYER.match(path[0]))], default=0)
     return {prefix + (_tdnnf_key(path, n_mid) if kind == "tdnnf" else _hifigan_key(path)):
             _tensor(path, leaf) for prefix, kind, path, leaf in entries}
+
+
+def ng_states_from_satpu(ng_state: Mapping) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+    """satpu's per-layer ``ng_state`` tree ({..layer..: {"in"|"out": {W, d,
+    rho, t, nrows}}}) -> {module path: {"in"|"out": {W, d, rho, t}}}, the
+    layout of ``satpu_torch.chain.trainer.ChainTrainer.ng_states``."""
+    entries = list(_flatten(ng_state))
+    n_mid = max([int(m.group(1)) for path, _ in entries
+                 if (m := _MID_LAYER.match(path[0]))], default=0)
+    out: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {}
+    for path, leaf in entries:
+        *module, side, key = path
+        if key == "nrows":  # a statistics carrier of satpu's custom_vjp
+            continue
+        name = _tdnnf_key(tuple(module) + ("_",), n_mid)[:-2]
+        out.setdefault(name, {}).setdefault(side, {})[key] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32))
+    return out

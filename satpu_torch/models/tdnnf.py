@@ -1,4 +1,4 @@
-"""TDNN-F layers for inference (port of ``satpu.models.tdnnf``).
+"""TDNN-F layers (port of ``satpu.models.tdnnf``).
 
 Layouts: weights keep satpu's torch layout (affine [out, in]); activations
 are torch's NCW ([B, C, T]) inside the network. The context splice of a
@@ -10,6 +10,15 @@ explicit gather.
 ``compute_dtype="bfloat16"`` is the serving policy: splice/affine matmuls in
 bf16 with f32 parameters, batch norm and VQ in f32, inter-layer activations
 stored bf16.
+
+Training (``module.train()``, f32) follows satpu's ``train=True``: batch
+norm normalizes with the batch's statistics over (B, T) and updates its
+running ones (flax semantics, momentum 0.9), the VQ codebook takes its EMA
+update and reports its commitment loss and perplexity, and with natural
+gradient on every affine runs on spliced rows through
+``chain.ngsgd.NatAffine`` once the trainer has given it an ``ng_slot``.
+``constrain_orthonormal`` is the orthonormal constraint on the ``inner_nat``
+weights, applied between steps.
 """
 from __future__ import annotations
 
@@ -20,6 +29,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# satpu's fixed training constants: the VQ's commitment weight and EMA
+# decay/smoothing, and the batch norm's running-statistics momentum
+VQ_COMMITMENT_COST = 0.25
+VQ_DECAY = 0.95
+VQ_EPSILON = 1e-5
+BN_MOMENTUM = 0.9
 
 
 def get_padding(kernel_sizes: Sequence[int], subsampling_factors: Sequence[float]) -> int:
@@ -69,7 +85,11 @@ class NaturalAffineTransform(nn.Module):
 
     ``splice=(context_len, stride)`` evaluates the layer on the
     context-spliced input without materializing it: the [out, c*D] weight,
-    whose columns are tap-major, becomes a width-c conv kernel."""
+    whose columns are tap-major, becomes a width-c conv kernel.
+
+    ``ng_slot`` (a ``chain.ngsgd.NGSlot``, set by the chain trainer and not
+    part of the state_dict) routes a training forward through
+    ``ngsgd.NatAffine``, whose backward records the layer's NG statistics."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
                  compute_dtype: str = "float32"):
@@ -78,6 +98,7 @@ class NaturalAffineTransform(nn.Module):
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim)) if use_bias else None
+        self.ng_slot = None
         self.reset_parameters()
 
     @torch.no_grad()
@@ -89,6 +110,13 @@ class NaturalAffineTransform(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 splice: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if self.ng_slot is not None and self.training and splice is None:
+            from ..chain.ngsgd import nat_affine
+
+            B, C, T = x.shape
+            x2d = x.transpose(1, 2).reshape(B * T, C).to(self.weight.dtype)
+            y = nat_affine(x2d, self.weight, self.bias, self.ng_slot)
+            return y.reshape(B, T, self.out_dim).transpose(1, 2)
         w = self.weight
         if self.compute_dtype == "bfloat16":
             x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
@@ -100,7 +128,7 @@ class NaturalAffineTransform(nn.Module):
             y = F.conv1d(x, kernel, stride=s)
         else:
             y = torch.einsum("bit,oi->bot", x, w)
-        y = y.to(torch.float32)
+        y = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 out -> f32
         if self.bias is not None:
             y = y + self.bias[:, None]
         return y
@@ -121,14 +149,18 @@ class OrthonormalLinear(nn.Module):
 
 
 class VectorQuantizerEMA(nn.Module):
-    """VQ-VAE quantizer, inference: nearest codebook entry per frame.
+    """VQ-VAE quantizer with EMA codebook updates: nearest codebook entry per
+    frame, straight-through gradients.
 
     Buffers ``embedding``, ``ema_cluster_size`` and ``ema_w`` hold satpu's
-    ``vq_stats`` (the EMA accumulators only matter to training). Returns
-    (quantized, indices); the training loss and perplexity are not ported."""
+    ``vq_stats``. In training mode the codebook first takes its EMA update
+    from this batch's assignments, and the quantized output uses the
+    updated codebook. Returns (vq_loss, quantized, perplexity, indices); the
+    loss and perplexity only in training mode (None otherwise)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int):
         super().__init__()
+        self.num_embeddings = num_embeddings
         self.register_buffer("embedding", torch.empty(num_embeddings, embedding_dim))
         self.register_buffer("ema_cluster_size", torch.zeros(num_embeddings))
         self.register_buffer("ema_w", torch.empty(num_embeddings, embedding_dim))
@@ -140,6 +172,17 @@ class VectorQuantizerEMA(nn.Module):
         self.ema_cluster_size.zero_()
         self.ema_w.copy_(torch.randn(self.ema_w.shape, generator=generator))
 
+    @torch.no_grad()
+    def _ema_update(self, flat: torch.Tensor, indices: torch.Tensor) -> None:
+        K = self.num_embeddings
+        one_hot = F.one_hot(indices, K).to(flat.dtype)
+        cs = self.ema_cluster_size * VQ_DECAY + (1 - VQ_DECAY) * one_hot.sum(0)
+        n = cs.sum()
+        cs = (cs + VQ_EPSILON) / (n + K * VQ_EPSILON) * n
+        self.ema_w.mul_(VQ_DECAY).add_((1 - VQ_DECAY) * (one_hot.T @ flat))
+        self.ema_cluster_size.copy_(cs)
+        self.embedding.copy_(self.ema_w / cs[:, None])
+
     def forward(self, inputs: torch.Tensor):
         """inputs [B, C, T] (f32)."""
         B, C, T = inputs.shape
@@ -149,23 +192,69 @@ class VectorQuantizerEMA(nn.Module):
         distances = ((flat ** 2).sum(dim=1, keepdim=True) + (w ** 2).sum(dim=1)[None, :]
                      - 2.0 * flat @ w.T)
         indices = distances.argmin(dim=1)
-        quantized = w[indices].reshape(x.shape)
+        vq_loss = perplexity = None
+        if self.training:
+            self._ema_update(flat.detach(), indices)
+        quantized = self.embedding[indices].reshape(x.shape)
+        if self.training:
+            vq_loss = VQ_COMMITMENT_COST * torch.mean((quantized.detach() - x) ** 2)
+            avg_probs = (torch.bincount(indices, minlength=self.num_embeddings).float()
+                         / flat.shape[0])
+            perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
         # straight-through estimator, literally: in f32 its value is not
         # exactly `quantized`
         quantized = x + (quantized - x).detach()
-        return quantized.transpose(1, 2), indices.reshape(B, T)
+        return vq_loss, quantized.transpose(1, 2), perplexity, indices.reshape(B, T)
 
 
 class VQBottleneck(nn.Module):
-    """VectorQuantizerEMA as a TDNNF bottleneck function (returns the
-    quantized features only)."""
+    """VectorQuantizerEMA as a TDNNF bottleneck function: returns the
+    quantized features; in training mode it keeps this forward's
+    ``{"vq_loss", "vq_perplexity"}`` in ``aux`` for the network to return."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int):
         super().__init__()
         self.vq = VectorQuantizerEMA(num_embeddings, embedding_dim)
+        self.aux = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.vq(x)[0]
+        vq_loss, quantized, perplexity, _ = self.vq(x)
+        self.aux = ({"vq_loss": vq_loss, "vq_perplexity": perplexity.detach()}
+                    if self.training else {})
+        return quantized
+
+
+def constrain_orthonormal(M: torch.Tensor, scale: float, update_speed: float = 0.125
+                          ) -> torch.Tensor:
+    """One step of Povey's orthonormal-constraint update; ``scale < 0`` is
+    the floating scale estimated from the matrix itself. Returns the new
+    matrix."""
+    rows, cols = M.shape
+    transposed = rows < cols
+    W = M.T if transposed else M
+    d = W.shape[0]
+    P = W @ W.T
+    if scale < 0.0:
+        trace_P = torch.trace(P)
+        ratio = torch.sum(P ** 2) / trace_P
+        ratio2 = ratio * d / trace_P
+        speed = torch.where(ratio2 > 1.1, update_speed * 0.25,
+                            torch.where(ratio2 > 1.02, update_speed * 0.5,
+                                        torch.tensor(update_speed, device=M.device)))
+        scale2 = ratio
+    else:
+        speed = update_speed
+        scale2 = scale ** 2
+    P = P - scale2 * torch.eye(d, dtype=M.dtype, device=M.device)
+    W = W + (-4.0 * speed / scale2) * (P @ W)
+    return W.T if transposed else W
+
+
+def orthonormal_weights(model: nn.Module):
+    """(name, weight) of every ``inner_nat`` affine: the weights the
+    orthonormal constraint applies to."""
+    return [(name, p) for name, p in model.named_parameters()
+            if "inner_nat" in name.split(".") and name.endswith(".weight")]
 
 
 class TDNNF(nn.Module):
@@ -176,10 +265,11 @@ class TDNNF(nn.Module):
                  context_len: int = 1, subsampling_factor: float = 1,
                  bypass_scale: float = 0.66,
                  bottleneck_func: Optional[nn.Module] = None,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", natural_gradient: bool = False):
         super().__init__()
         self.context_len = context_len
         self.subsampling_factor = subsampling_factor
+        self.natural_gradient = natural_gradient
         self.bypass_scale = bypass_scale
         self.linearB = OrthonormalLinear(feat_dim * context_len, bottleneck_dim,
                                          compute_dtype=compute_dtype)
@@ -220,7 +310,9 @@ class TDNNF(nn.Module):
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False) -> torch.Tensor:
         inp = x
         s = self.subsampling_factor
-        if float(s).is_integer():
+        # natural-gradient training needs the spliced rows themselves (its
+        # input-side statistics); otherwise the splice runs as a conv
+        if float(s).is_integer() and not (self.natural_gradient and self.training):
             if self.context_len > 1:
                 h = self.linearB(x, splice=(self.context_len, int(s)))
             else:
@@ -238,7 +330,10 @@ class TDNNF(nn.Module):
 
 
 class BatchNormStats(nn.Module):
-    """Non-affine batch norm in eval mode: buffers running_mean/running_var."""
+    """Non-affine batch norm over the channels of [B, C, T], buffers
+    running_mean/running_var. Training mode uses flax's statistics: mean
+    and biased variance E[x^2] - E[x]^2 (clipped at 0) over (B, T), and
+    running = 0.9 * running + 0.1 * batch."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -247,7 +342,15 @@ class BatchNormStats(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.running_mean[:, None]) * torch.rsqrt(self.running_var + self.eps)[:, None]
+        if self.training:
+            mean = x.mean(dim=(0, 2))
+            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean[:, None]) * torch.rsqrt(var + self.eps)[:, None]
 
 
 class TDNNFBatchNorm(nn.Module):
@@ -257,12 +360,13 @@ class TDNNFBatchNorm(nn.Module):
                  context_len: int = 1, subsampling_factor: float = 1,
                  bypass_scale: float = 0.66,
                  bottleneck_func: Optional[nn.Module] = None,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", natural_gradient: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.tdnn = TDNNF(feat_dim, output_dim, bottleneck_dim, context_len=context_len,
                           subsampling_factor=subsampling_factor, bypass_scale=bypass_scale,
-                          bottleneck_func=bottleneck_func, compute_dtype=compute_dtype)
+                          bottleneck_func=bottleneck_func, compute_dtype=compute_dtype,
+                          natural_gradient=natural_gradient)
         self.bn = BatchNormStats(output_dim)
 
     def forward(self, x: torch.Tensor, return_bottleneck: bool = False) -> torch.Tensor:
@@ -270,7 +374,7 @@ class TDNNFBatchNorm(nn.Module):
         if return_bottleneck:
             return h
         h = torch.relu(self.bn(h))
-        if self.compute_dtype == "bfloat16":
+        if self.compute_dtype == "bfloat16" and not self.training:
             # serving: inter-layer activations stored bf16 (the next matmul
             # casts to bf16 anyway; BN statistics stay f32)
             h = h.to(torch.bfloat16)

@@ -125,6 +125,11 @@ def read_keyed_text(path: str) -> Dict[str, str]:
     return out
 
 
+def read_utt2len_file(path: str) -> Dict[str, int]:
+    """utt2len -> {utt: number of samples}."""
+    return {k: int(float(v)) for k, v in read_keyed_text(path).items()}
+
+
 def write_keyed_text(table: Dict[str, str], path: str) -> None:
     with open(path, "w") as f:
         for k in sorted(table):

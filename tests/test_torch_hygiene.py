@@ -38,7 +38,8 @@ def test_no_jax_flax_or_satpu_imports(path):
 
 def test_cli_import_leaves_jax_unloaded():
     code = ("import sys, satpu_torch.bin.anonymize, satpu_torch.bin.pipeline, "
-            "satpu_torch.infer_helper\n"
+            "satpu_torch.infer_helper, satpu_torch.bin.train_asr, satpu_torch.chain, "
+            "satpu_torch.chain.trainer, satpu_torch.chain.dataset, satpu_torch.chain.prep\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
