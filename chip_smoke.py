@@ -22,7 +22,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 7. den kernel: holds the LF-MMI den forward (K2f) and backward (K2b)
    kernels against their plain versions at the training path's shapes (the
    full-scale den graph of 1641 states, B=16, T=99) on random loglikes and
-   on the full-width network's chain output, and times them;
+   on the full-width network's chain output, and on a 4001-state graph
+   whose arcs do not fit shared memory (B=4, T=20); checks that two calls
+   give the same bits and that a call is one kernel launch in a profiler
+   trace, and times them;
 8. train: builds a chain fixture (den graph, numerator FSTs, 32 + 16
    synthetic 3 s egs) and runs the ``train_asr`` CLI on the card for 4 steps
    of the full-width TDNN-F + VQ-48 with natural gradient; checks the
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -63,6 +67,11 @@ KERNEL_SOURCES = ("shc", "den_fb")
 # each: 3280 pdfs, 1641 states) and 3 s egs (99 output frames)
 DEN_PHONES, DEN_SUCC, NUM_PDFS, DEN_STATES = 164, 9, 3280, 1641
 EG_SECONDS, EG_FRAMES = 3.0, 99
+# a den graph whose arcs do not fit a block's shared memory (4001 states)
+BIG_DEN = (400, 9, 4, 20)  # phones, successors, B, T
+# the 4-step train_asr run's objf with the earlier den kernels (one launch
+# per frame, products dense over A), measured on an H100
+PER_FRAME_OBJF = [-1.8248, -1.4224, -1.3493, -1.3041]
 TRAIN_NET = {"output_dim": NUM_PDFS, "bottleneck": "vq", "codebook_size": 48,
              "natural_gradient": True}
 # the train-cpu phase: a tiny TDNN-F over a 5-phone den graph (40 pdfs)
@@ -133,11 +142,33 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         built = list(pool.map(build, KERNEL_SOURCES))
     for name, path, log, secs in built:
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] csrc/{name}.cu -> {os.path.relpath(path, ROOT)} in {secs:.2f} s"
               " (nvcc sm_90a)")
-        for ln in usage:
-            print(f"[build] ptxas: {ln}")
+        usage = {}  # kernel -> its register and spill lines, in ptxas' order
+        kernel = "?"
+        for ln in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                kernel = kernel_name(entry.group(1))
+            elif "registers" in ln or "spill" in ln:
+                usage.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
+        for kernel, lines in usage.items():
+            print(f"[build] ptxas: {kernel}: {'; '.join(lines)}")
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments (den_fwd<2, 1>) from its
+    mangled name in a namespace (_ZN<len><namespace><len><name>I...E...);
+    else the mangled name."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    rest = mangled[m.end() + int(m.group(1)):] if m else ""
+    n = re.match(r"(\d+)", rest)
+    if not n:
+        return mangled
+    end = n.end() + int(n.group(1))
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest[end:])
+    return rest[n.end():end] + (
+        f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
 
 def phase_kernel(np, torch):
@@ -392,13 +423,86 @@ def den_graph():
     return den
 
 
+def den_check(torch, den_fb, g, ll, lk, name: str):
+    """K2f+K2b (through den_scan) against the plain version on loglikes
+    ``ll`` [B, T, P]: value rel <= 1e-5, gradient max abs <= 1e-4, the same
+    live set of stored alphas, posteriors summing to 1 within 1e-3, and the
+    same bits from two calls. Returns (forward err, backward err, llf, lls,
+    alphas)."""
+    B, T, _ = ll.shape
+    S = g["A"].shape[0]
+    graph = (g["A"], g["log_self"], g["log_init"])
+    a0 = g["start"].expand(B, S).contiguous()
+    llf, lls = ll.index_select(-1, g["pdf_fwd"]), ll.index_select(-1, g["pdf_self"])
+    res = []
+    for scan, extra in ((den_fb.den_scan, (g["A_sparse"],)), (den_fb.den_scan, (g["A_sparse"],)),
+                        (den_fb.den_scan_plain, ())):
+        x1, x2 = llf.clone().requires_grad_(True), lls.clone().requires_grad_(True)
+        v = den_fb.final_value(scan(x1, x2, a0, *graph, lk, *extra), g["final"], g["log_init"], lk)
+        v.sum().backward()
+        res.append((v.detach(), x1.grad, x2.grad))
+    torch.cuda.synchronize()
+    (v, gf, gs), again, (v_p, gf_p, gs_p) = res
+    v_abs = (v - v_p).abs().max().item()
+    v_rel = v_abs / v_p.abs().max().item()
+    g_abs = max((gf - gf_p).abs().max().item(), (gs - gs_p).abs().max().item())
+    occupation = (gf + gs).sum(-1)  # the den posteriors of each frame sum to one
+    occ_err = (occupation - 1).abs().max().item()
+    # K2f's own output, the stored alphas, over the states the plain
+    # version reaches (the rest hold NEG_INF on both sides)
+    alphas = den_fb.den_fb_forward(llf, lls, a0, *graph, lk, g["A_sparse"])
+    same_bits = bool(torch.equal(alphas, den_fb.den_fb_forward(llf, lls, a0, *graph, lk,
+                                                                g["A_sparse"]))
+                     and all(torch.equal(a, b) for a, b in zip((v, gf, gs), again)))
+    alphas_p = den_fb.den_fb_forward_plain(llf, lls, a0, *graph, lk)
+    live = alphas_p > den_fb.NEG_INF / 2
+    a_abs = (alphas - alphas_p)[live].abs().max().item()
+    same_live = bool(torch.equal(live, alphas > den_fb.NEG_INF / 2))
+    print(f"[kernel] den_fb K2f+K2b vs plain, {name} loglikes B={B} T={T} S={S} leak 1e-5"
+          f" (arcs in {den_fb.den_fb_forward.placement} memory forward,"
+          f" {den_fb.den_fb_backward.placement} backward):"
+          f" value max abs err {v_abs:.3e}, rel {v_rel:.3e} (tolerance rel 1e-5);"
+          f" alphas max abs err {a_abs:.3e}, rel {a_abs / alphas_p[live].abs().max():.3e}"
+          f" over the {live.float().mean().item():.1%} live entries (same live set:"
+          f" {same_live}); gradient max abs err {g_abs:.3e} (tolerance 1e-4); posteriors sum"
+          f" to 1 within {occ_err:.1e}; two calls bitwise equal: {same_bits}")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(gf).all()
+               and torch.isfinite(gs).all()), f"den_fb output not finite on {name}")
+    check(v_rel <= 1e-5 and same_live, f"K2f disagrees with its plain version on {name}")
+    check(g_abs <= 1e-4, f"K2b disagrees with its plain version on {name}")
+    check(occ_err <= 1e-3, f"den posteriors do not sum to one on {name}")
+    check(same_bits, f"two calls of the den kernels differ on {name}")
+    return max(v_abs, a_abs), g_abs, llf, lls, alphas
+
+
+def den_launches_per_call(torch, fn) -> int:
+    """Device kernels named den_fwd / den_bwd in a profiler trace of fn(),
+    called inside a profiler range (as the trainer's phases call it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("den_call"):
+            fn()
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    n = sum(1 for name in device if "den_fwd" in name or "den_bwd" in name)
+    if n != 1:
+        print(f"[kernel] device items in the trace: {device}")
+    return n
+
+
 def phase_den_kernel(np, torch, den):
     """K2f and K2b against their plain versions at the training path's
     shapes (B=16, T=99, S=1641, leak 1e-5), on random loglikes and on the
-    chain output of the full-width network, then timed; returns their JSON
+    chain output of the full-width network, and on the 4001-state graph;
+    launches per call from a profiler trace; then timed. Returns their JSON
     entries (without the main path's launch counts)."""
     from satpu_torch import infer_helper
     from satpu_torch.chain import den_fb
+    from satpu_torch.chain.objf import DenominatorGraph
+    from satpu_torch.chain.prep import random_bigram_den
 
     B, T, S = 16, EG_FRAMES, den.num_states
     g = den.tensors("cuda")
@@ -417,76 +521,101 @@ def phase_den_kernel(np, torch, den):
               "chain_out": chain_out}
     err_f = err_b = 0.0
     for name, ll in inputs.items():
-        llf, lls = ll.index_select(-1, g["pdf_fwd"]), ll.index_select(-1, g["pdf_self"])
-        res = []
-        for scan in (den_fb.den_scan, den_fb.den_scan_plain):
-            x1, x2 = llf.clone().requires_grad_(True), lls.clone().requires_grad_(True)
-            v = den_fb.final_value(scan(x1, x2, a0, *graph, lk), g["final"], g["log_init"], lk)
-            v.sum().backward()
-            res.append((v.detach(), x1.grad, x2.grad))
-        torch.cuda.synchronize()
-        (v, gf, gs), (v_p, gf_p, gs_p) = res
-        v_abs = (v - v_p).abs().max().item()
-        v_rel = v_abs / v_p.abs().max().item()
-        g_abs = max((gf - gf_p).abs().max().item(), (gs - gs_p).abs().max().item())
-        occupation = (gf + gs).sum(-1)  # the den posteriors of each frame sum to one
-        occ_err = (occupation - 1).abs().max().item()
-        # K2f's own output, the stored alphas, over the states the plain
-        # version reaches (the rest hold NEG_INF on both sides)
-        alphas = den_fb.den_fb_forward(llf, lls, a0, *graph, lk)
-        alphas_p = den_fb.den_fb_forward_plain(llf, lls, a0, *graph, lk)
-        live = alphas_p > den_fb.NEG_INF / 2
-        a_abs = (alphas - alphas_p)[live].abs().max().item()
-        same_live = bool(torch.equal(live, alphas > den_fb.NEG_INF / 2))
-        print(f"[kernel] den_fb K2f+K2b vs plain, {name} loglikes B={B} T={T} S={S} leak 1e-5:"
-              f" value max abs err {v_abs:.3e}, rel {v_rel:.3e} (tolerance rel 1e-5);"
-              f" alphas max abs err {a_abs:.3e}, rel {a_abs / alphas_p[live].abs().max():.3e}"
-              f" over the {live.float().mean().item():.1%} live entries (same live set:"
-              f" {same_live});"
-              f" gradient max abs err {g_abs:.3e} (tolerance 1e-4); posteriors sum to 1"
-              f" within {occ_err:.1e}")
-        check(bool(torch.isfinite(v).all() and torch.isfinite(gf).all()
-                   and torch.isfinite(gs).all()), f"den_fb output not finite on {name}")
-        check(v_rel <= 1e-5 and same_live, f"K2f disagrees with its plain version on {name}")
-        check(g_abs <= 1e-4, f"K2b disagrees with its plain version on {name}")
-        check(occ_err <= 1e-3, f"den posteriors do not sum to one on {name}")
-        err_f, err_b = max(err_f, v_abs, a_abs), max(err_b, g_abs)
+        e_f, e_b, llf, lls, alphas = den_check(torch, den_fb, g, ll, lk, name)
+        err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+    place = (den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)
 
-    # timed on the chain output (the last input): A stays in the 50 MB L2
-    # across a call's frames, as it does in a train step
+    phones, succ, b_big, t_big = BIG_DEN
+    fst, tree, _ = random_bigram_den(phones, succ, seed=0)
+    big = DenominatorGraph.from_fst(fst, tree.num_pdfs).tensors("cuda")
+    ll = torch.randn((b_big, t_big, tree.num_pdfs), generator=gen, device="cuda") * 2
+    e_f, e_b, *big_ll = den_check(torch, den_fb, big, ll, lk, f"random ({phones}-phone graph)")
+    err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+    check((den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)
+          == ("global", "global"), "the 4001-state graph's arcs fit shared memory")
+
+    # launches per call, then timed: on the chain output (the last input of
+    # the full-scale graph) at B=16, on random loglikes at B=64, and on the
+    # 4001-state graph
+    sp = g["A_sparse"]
     a_T = alphas[-1].clone().requires_grad_(True)
     den_fb.final_value(a_T, g["final"], g["log_init"], lk).sum().backward()
     g_final = a_T.grad
-    ms_f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, lk), iters=20)
-    plain_f = cuda_ms(torch, lambda: den_fb.den_fb_forward_plain(llf, lls, a0, *graph, lk),
-                      iters=3, warmup=1)
-    ms_b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph, lk),
-                   iters=20)
-    plain_b = cuda_ms(torch, lambda: den_fb.den_fb_backward_plain(g_final, alphas, llf, lls,
-                                                                  *graph, lk),
-                      iters=3, warmup=1)
-    BTS, SS = B * T * S, S * S
-    # operations: A comes from the den graph's arcs, so e @ A needs one FMA
-    # per nonzero of A, per batch row and frame (the backward twice: sums
-    # again, and d_sums @ A^T). Bytes: each input read once and each output
-    # written once: llf, lls, alpha0, A, log_self, log_init in; alphas
-    # [T+1, B, S] out (the backward: g_final, alphas, llf, lls and the graph
-    # in; dllf, dlls out)
-    nnz = int((g["A"] != 0).sum())
-    b_f, by_f = bound(2 * B * T * nnz, 4 * (2 * BTS + B * S + SS + 2 * S + (T + 1) * B * S))
-    b_b, by_b = bound(4 * B * T * nnz, 4 * (B * S + (T + 1) * B * S + 2 * BTS + SS + 2 * S
-                                           + 2 * BTS))
-    print(f"[kernel] den graph A: {nnz} nonzeros of {SS} ({nnz / SS:.2%} dense)")
-    for name, ms, plain, b, by in (("K2f den_fb_forward", ms_f, plain_f, b_f, by_f),
-                                   ("K2b den_fb_backward", ms_b, plain_b, b_b, by_b)):
-        print(f"[kernel] {name} B={B} T={T} S={S}: {ms * 1e3:.1f} us (bound {b * 1e3:.1f} us"
-              f" by {by}, {b / ms:.2%} of it); plain version {plain * 1e3:.1f} us")
+    per_call = (
+        den_launches_per_call(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, lk, sp)),
+        den_launches_per_call(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls,
+                                                                    *graph, lk, sp)))
+    print(f"[kernel] den kernel launches per call in a profiler trace: K2f {per_call[0]},"
+          f" K2b {per_call[1]} (one launch per frame: {T} and {3 * T})")
+    check(per_call == (1, 1), f"a den kernel call is not one launch: {per_call}")
+    nnz = sp.in_src.numel()
+    print(f"[kernel] den graph A: {nnz} nonzeros of {S * S} ({nnz / (S * S):.2%} dense),"
+          f" {nnz * 6 + (S + 1) * 4} bytes in sparse form; arcs in {place[0]} memory forward,"
+          f" {place[1]} backward")
+    timed = den_timing(torch, den_fb, g, llf, lls, lk)
+    # the leak's share: without it a frame has one block reduction, not three
+    # (four backward), and no leak terms
+    off = (g["A"], g["log_self"], g["log_init"], den_fb.leak_log(0.0), sp)
+    no_leak = (cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *off), iters=20),
+               cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *off),
+                           iters=20))
+    print(f"[kernel] the same B={B} calls without the leak: K2f {no_leak[0] * 1e3:.1f} us,"
+          f" K2b {no_leak[1] * 1e3:.1f} us")
+    ll = torch.randn((64, T, NUM_PDFS), generator=gen, device="cuda") * 2
+    den_timing(torch, den_fb, g, ll.index_select(-1, g["pdf_fwd"]),
+               ll.index_select(-1, g["pdf_self"]), lk)
+    den_timing(torch, den_fb, big, big_ll[0], big_ll[1], lk)
     entry = {"route": "cuda", "source": "satpu_torch/csrc/den_fb.cu", "launches": 0,
              "library_ms": None}
+    (ms_f, plain_f, b_f, by_f), (ms_b, plain_b, b_b, by_b) = timed
     return [dict(entry, name="den_fb_forward", replaces="satpu/chain/pallas_fb.py:234",
                  max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=b_f, bound_by=by_f),
             dict(entry, name="den_fb_backward", replaces="satpu/chain/pallas_fb.py:278",
                  max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b)]
+
+
+def den_timing(torch, den_fb, g, llf, lls, lk):
+    """K2f and K2b on llf/lls [B, T, S] over the graph tensors g: each one's
+    device ms (CUDA events, arcs and A warm in L2 as in a train step), its
+    plain version's ms and its bound; printed, and returned as two tuples
+    (ms, plain ms, bound ms, bound by)."""
+    B, T, S = llf.shape
+    sp = g["A_sparse"]
+    graph = (g["A"], g["log_self"], g["log_init"], lk)
+    a0 = g["start"].expand(B, S).contiguous()
+    alphas = den_fb.den_fb_forward(llf, lls, a0, *graph, sp)
+    a_T = alphas[-1].clone().requires_grad_(True)
+    den_fb.final_value(a_T, g["final"], g["log_init"], lk).sum().backward()
+    g_final = a_T.grad
+    ms_f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, sp), iters=20)
+    plain_f = cuda_ms(torch, lambda: den_fb.den_fb_forward_plain(llf, lls, a0, *graph),
+                      iters=3, warmup=1)
+    ms_b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph, sp),
+                   iters=20)
+    plain_b = cuda_ms(torch, lambda: den_fb.den_fb_backward_plain(g_final, alphas, llf, lls,
+                                                                  *graph),
+                      iters=3, warmup=1)
+    # operations: one FMA per nonzero of A, per batch row and frame (the
+    # backward twice: sums again, and d_sums @ A^T). Bytes: each input read
+    # once and each output written once: llf, lls, alpha0, A in its sparse
+    # form (nnz values and 16-bit states, S + 1 pointers: the least any
+    # implementation must read of it), log_self, log_init in; alphas
+    # [T+1, B, S] out (the backward: g_final, alphas, llf, lls and the graph
+    # in; dllf, dlls out)
+    BTS, nnz = B * T * S, sp.in_src.numel()
+    a_bytes = nnz * (4 + 2) + (S + 1) * 4
+    b_f, by_f = bound(2 * B * T * nnz, 4 * (2 * BTS + B * S + 2 * S + (T + 1) * B * S)
+                      + a_bytes)
+    b_b, by_b = bound(4 * B * T * nnz, 4 * (B * S + (T + 1) * B * S + 2 * BTS + 2 * S
+                                           + 2 * BTS) + a_bytes)
+    out = ((ms_f, plain_f, b_f, by_f), (ms_b, plain_b, b_b, by_b))
+    for name, (ms, plain, b, by), place in zip(
+            ("K2f den_fb_forward", "K2b den_fb_backward"), out,
+            (den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)):
+        print(f"[kernel] {name} B={B} T={T} S={S}, arcs in {place} memory: {ms * 1e3:.1f} us"
+              f" = {ms * 1e3 / T:.2f} us a frame (bound {b * 1e3:.1f} us by {by},"
+              f" {b / ms:.2%} of it); plain version {plain * 1e3:.1f} us")
+    return out
 
 
 def phase_train(np, torch):
@@ -532,6 +661,8 @@ def phase_train(np, torch):
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     check([r["step"] for r in logged] == list(range(1, steps + 1)), "one log line a step")
+    print(f"[train] objf by step: {[round(r['chain_objf'], 4) for r in logged]}; with the"
+          f" earlier per-frame den kernels {PER_FRAME_OBJF}")
     for r in logged:
         check(all(np.isfinite(r[k]) for k in ("chain_objf", "loss", "valid_objf")),
               f"objf not finite at step {r['step']}: {r}")
@@ -704,12 +835,12 @@ def phase_train_throughput(np, torch, fx, card):
             co = model(batch[0], generator=trainer.generator)[0]
         llf, lls = (co.index_select(-1, g[k]).contiguous() for k in ("pdf_fwd", "pdf_self"))
         a0 = g["start"].expand(B, den.num_states).contiguous()
-        graph = (g["A"], g["log_self"], g["log_init"])
-        alphas = den_fb.den_fb_forward(llf, lls, a0, *graph, lk)
+        graph = (g["A"], g["log_self"], g["log_init"], lk, g["A_sparse"])
+        alphas = den_fb.den_fb_forward(llf, lls, a0, *graph)
         g_final = torch.ones_like(a0)
-        k2f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, lk), iters=5)
-        k2b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph,
-                                                             lk), iters=5)
+        k2f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph), iters=5)
+        k2b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph),
+                      iters=5)
         audio = B * EG_SECONDS
         print(f"[train-throughput] B={B} x {EG_SECONDS} s, tdnnf_vq 1024, NG on, f32:"
               f" {wall * 1e3:.1f} ms/step (host clock), {audio / wall:.1f} audio-s/s; peak mem"

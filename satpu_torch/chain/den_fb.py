@@ -14,9 +14,14 @@ reverse, recomputing each step from the stored alphas. ``log_leak`` below
 ``NEG_INF / 2`` switches the leak off (leaky_hmm_coefficient = 0).
 
 On CUDA tensors ``den_fb_forward`` / ``den_fb_backward`` launch the kernels
-of ``csrc/den_fb.cu`` (built on first use) and count the calls in their
-``launches``; on CPU tensors they run the plain versions, which are the same
-formulas in PyTorch ops. ``den_scan`` wraps both in a
+of ``csrc/den_fb.cu`` (built on first use; one launch a call, one block per
+batch row running all T frames) and count the calls in their ``launches``.
+The kernels read A's nonzeros, ``den_sparse(A)``, which the caller passes
+(``DenominatorGraph.tensors`` caches it as ``"A_sparse"``); they keep the
+arcs in a block's shared memory when they fit and read them from device
+memory otherwise, and record the placement taken in ``.placement``. On CPU
+tensors the wrappers run the plain versions, the same formulas in PyTorch
+ops over the dense A. ``den_scan`` wraps both in a
 ``torch.autograd.Function`` (gradients flow to llf and lls only: the graph
 tensors are constants); ``den_scan_plain`` is the same function through the
 plain versions on any device. The final value
@@ -27,7 +32,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -107,6 +114,46 @@ def den_fb_backward_plain(g_final, alphas, llf, lls, A, log_self, log_init,
     return dllf, dlls
 
 
+class DenSparse(NamedTuple):
+    """A's nonzeros twice (``den_sparse``). By destination: the arcs into
+    state j are ``in_ptr[j]:in_ptr[j + 1]`` of ``in_src`` / ``in_val``; by
+    source: the arcs out of state i are ``out_ptr[i]:out_ptr[i + 1]`` of
+    ``out_dst`` / ``out_val``. Each row runs in ascending order of the other
+    state. Pointers int32 [S + 1], states int16 [nnz], values f32 [nnz]
+    (A's entries exactly)."""
+
+    in_ptr: torch.Tensor
+    in_src: torch.Tensor
+    in_val: torch.Tensor
+    out_ptr: torch.Tensor
+    out_dst: torch.Tensor
+    out_val: torch.Tensor
+
+    def to(self, device) -> "DenSparse":
+        return DenSparse(*(x.to(device) for x in self))
+
+
+_MAX_STATE = 32767  # states are int16
+
+
+def den_sparse(A) -> DenSparse:
+    """The sparse form of A [S, S] (numpy or torch), on the CPU."""
+    a = np.asarray(A.detach().cpu() if torch.is_tensor(A) else A, np.float32)
+    S = a.shape[0]
+    if a.shape != (S, S) or S > _MAX_STATE:
+        raise ValueError(f"den_sparse takes a square A of at most {_MAX_STATE} states,"
+                         f" got {a.shape}")
+
+    def rows(m):  # m's nonzeros row by row, columns ascending
+        r, c = np.nonzero(m)
+        ptr = np.zeros(S + 1, np.int32)
+        ptr[1:] = np.cumsum(np.bincount(r, minlength=S))
+        return (torch.from_numpy(ptr), torch.from_numpy(c.astype(np.int16)),
+                torch.from_numpy(m[r, c]))
+
+    return DenSparse(*rows(a.T), *rows(a))
+
+
 def _check(name, **tensors):
     dev = None
     for k, x in tensors.items():
@@ -132,14 +179,32 @@ def _shapes(llf, lls, A, log_self, log_init):
     return B, T, S
 
 
-def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float):
+def _arcs(name, sparse, S: int, dev, backward: bool):
+    """The kernel's arc arrays from ``sparse`` (by destination; by source
+    too for the backward) and nnz, after checking them."""
+    if not isinstance(sparse, DenSparse):
+        raise ValueError(f"{name} on {dev} needs A's sparse form: pass den_sparse(A)"
+                         " (DenominatorGraph.tensors(device)['A_sparse'])")
+    nnz = sparse.in_src.numel()
+    for x, dtype, n in zip(sparse, (torch.int32, torch.int16, torch.float32) * 2,
+                           (S + 1, nnz, nnz) * 2):
+        if (x.device != dev or x.dtype != dtype or x.shape != (n,) or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"{name}: the sparse form does not match {S} states and {nnz}"
+                             f" arcs on {dev} (got {x.dtype} {tuple(x.shape)} on {x.device})")
+    return (sparse if backward else sparse[:3]), nnz
+
+
+def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
+                   sparse: Optional[DenSparse] = None):
     """K2f: alphas [T + 1, B, S] of the den recursion.
 
     llf, lls [B, T, S] per-state emission scores (cross / self-loop arcs),
     alpha0 [B, S], A [S, S] prob-domain cross transitions, log_self and
-    log_init [S]; all float32. On CUDA this launches ``satpu_den_fwd`` (T
-    step kernels; one count in ``den_fb_forward.launches``), on the CPU it
-    runs ``den_fb_forward_plain``."""
+    log_init [S]; all float32. On CUDA this launches ``satpu_den_fwd`` once
+    over A's nonzeros ``sparse`` (required there; one count in
+    ``den_fb_forward.launches``, the arcs' placement in ``.placement``), on
+    the CPU it runs ``den_fb_forward_plain``."""
     dev = _check("den_fb_forward", llf=llf, lls=lls, alpha0=alpha0, A=A,
                  log_self=log_self, log_init=log_init)
     B, T, S = _shapes(llf, lls, A, log_self, log_init)
@@ -147,29 +212,34 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float):
         raise ValueError(f"alpha0 must be [B, S] = [{B}, {S}], got {tuple(alpha0.shape)}")
     if dev.type == "cpu":
         return den_fb_forward_plain(llf, lls, alpha0, A, log_self, log_init, log_leak)
-    lib = _lib(S)
+    arcs, nnz = _arcs("den_fb_forward", sparse, S, dev, backward=False)
+    lib, place = _lib(S, nnz, backward=False)
     alphas = torch.empty((T + 1, B, S), device=dev, dtype=torch.float32)
     alphas[0] = alpha0
-    llf, lls, A = llf.contiguous(), lls.contiguous(), A.contiguous()
+    llf, lls = llf.contiguous(), lls.contiguous()
     log_self, log_init = log_self.contiguous(), log_init.contiguous()
-    err = lib.satpu_den_fwd(llf.data_ptr(), lls.data_ptr(), A.data_ptr(),
+    err = lib.satpu_den_fwd(llf.data_ptr(), lls.data_ptr(), *(x.data_ptr() for x in arcs),
                             log_self.data_ptr(), log_init.data_ptr(), log_leak,
-                            alphas.data_ptr(), B, T, S,
+                            alphas.data_ptr(), B, T, S, nnz, place == "shared",
                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_fwd launch failed: CUDA error {err}")
     den_fb_forward.launches += 1
+    den_fb_forward.placement = place
     return alphas
 
 
 den_fb_forward.launches = 0
+den_fb_forward.placement = None
 
 
-def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: float):
+def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: float,
+                    sparse: Optional[DenSparse] = None):
     """K2b: (dllf, dlls) [B, T, S] from g_final = dL/d alpha_T [B, S] and the
-    forward's alphas. On CUDA this launches ``satpu_den_bwd`` (3 T kernels;
-    one count in ``den_fb_backward.launches``), on the CPU it runs
-    ``den_fb_backward_plain``."""
+    forward's alphas. On CUDA this launches ``satpu_den_bwd`` once over A's
+    nonzeros ``sparse`` (required there; one count in
+    ``den_fb_backward.launches``, the arcs' placement in ``.placement``), on
+    the CPU it runs ``den_fb_backward_plain``."""
     dev = _check("den_fb_backward", g_final=g_final, alphas=alphas, llf=llf, lls=lls,
                  A=A, log_self=log_self, log_init=log_init)
     B, T, S = _shapes(llf, lls, A, log_self, log_init)
@@ -179,21 +249,25 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
     if dev.type == "cpu":
         return den_fb_backward_plain(g_final, alphas, llf, lls, A, log_self, log_init,
                                      log_leak)
-    lib = _lib(S)
+    arcs, nnz = _arcs("den_fb_backward", sparse, S, dev, backward=True)
+    lib, place = _lib(S, nnz, backward=True)
     dllf = torch.empty((B, T, S), device=dev, dtype=torch.float32)
     dlls = torch.empty_like(dllf)
-    work = torch.empty(3 * B * S + 2 * B, device=dev, dtype=torch.float32)
-    tensors = [x.contiguous() for x in (g_final, alphas, llf, lls, A, log_self, log_init)]
-    err = lib.satpu_den_bwd(*(x.data_ptr() for x in tensors), log_leak, dllf.data_ptr(),
-                            dlls.data_ptr(), work.data_ptr(), B, T, S,
+    tensors = [x.contiguous() for x in (g_final, alphas, llf, lls)]
+    rest = [x.contiguous() for x in (log_self, log_init)]
+    err = lib.satpu_den_bwd(*(x.data_ptr() for x in tensors), *(x.data_ptr() for x in arcs),
+                            *(x.data_ptr() for x in rest), log_leak, dllf.data_ptr(),
+                            dlls.data_ptr(), B, T, S, nnz, place == "shared",
                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_bwd launch failed: CUDA error {err}")
     den_fb_backward.launches += 1
+    den_fb_backward.placement = place
     return dllf, dlls
 
 
 den_fb_backward.launches = 0
+den_fb_backward.placement = None
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
@@ -204,22 +278,27 @@ def _load():
 
     lib = cuda_build.load("den_fb")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.satpu_den_max_states.restype = i
+    lib.satpu_den_max_states.argtypes = []
     lib.satpu_den_smem_bytes.restype = ctypes.c_longlong
-    lib.satpu_den_smem_bytes.argtypes = [i]
+    lib.satpu_den_smem_bytes.argtypes = [i, i, i, i]
     lib.satpu_den_fwd.restype = i
-    lib.satpu_den_fwd.argtypes = [p] * 5 + [f, p, i, i, i, p]
+    lib.satpu_den_fwd.argtypes = [p] * 7 + [f, p, i, i, i, i, i, p]
     lib.satpu_den_bwd.restype = i
-    lib.satpu_den_bwd.argtypes = [p] * 7 + [f, p, p, p, i, i, i, p]
+    lib.satpu_den_bwd.argtypes = [p] * 12 + [f, p, p, i, i, i, i, i, p]
     return lib
 
 
-def _lib(S: int):
+def _lib(S: int, nnz: int, backward: bool):
+    """The library and the arcs' placement: "shared" when they fit a block's
+    shared memory beside the row vectors, else "global" (read from device
+    memory). Raises ValueError for a graph the kernels do not take."""
     lib = _load()
-    need = lib.satpu_den_smem_bytes(S)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"den graph of {S} states needs {need} bytes of shared memory"
-                         f" per block; the kernels take at most {_SMEM_LIMIT}")
-    return lib
+    if S > lib.satpu_den_max_states():
+        raise ValueError(f"den graph of {S} states and {nnz} arcs: the kernels take at"
+                         f" most {lib.satpu_den_max_states()} states")
+    need = lib.satpu_den_smem_bytes(S, nnz, backward, True)
+    return lib, ("shared" if need <= _SMEM_LIMIT else "global")
 
 
 class _DenScan(torch.autograd.Function):
@@ -240,10 +319,13 @@ class _DenScan(torch.autograd.Function):
         return dllf, dlls, None, None, None, None, None, None, None
 
 
-def den_scan(llf, lls, alpha0, A, log_self, log_init, log_leak: float) -> torch.Tensor:
-    """alpha_T [B, S] through K2f, differentiable to llf/lls through K2b."""
+def den_scan(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
+             sparse: Optional[DenSparse] = None) -> torch.Tensor:
+    """alpha_T [B, S] through K2f, differentiable to llf/lls through K2b;
+    ``sparse`` = den_sparse(A) is required on CUDA."""
     return _DenScan.apply(llf, lls, alpha0, A, log_self, log_init, log_leak,
-                          den_fb_forward, den_fb_backward)
+                          functools.partial(den_fb_forward, sparse=sparse),
+                          functools.partial(den_fb_backward, sparse=sparse))
 
 
 def den_scan_plain(llf, lls, alpha0, A, log_self, log_init, log_leak: float) -> torch.Tensor:

@@ -14,10 +14,10 @@ the frame max flushes to zero, and alphas are clamped at the finite
   and a ``scatter_add`` into the destinations; frames past ``num_frames``
   are identity steps;
 - denominator: one shared graph with leaky-HMM smoothing. Chain den graphs
-  factor by destination (``DenFactored``): the step becomes one dense
-  [S, S] product plus a self-loop term, run by the den forward-backward
-  kernels of ``den_fb`` (K2f / K2b on the card); other graphs take the
-  per-arc recursion;
+  factor by destination (``DenFactored``): the step becomes one [S, S]
+  product plus a self-loop term, run by the den forward-backward kernels of
+  ``den_fb`` (K2f / K2b on the card, over A's nonzeros); other graphs take
+  the per-arc recursion;
 - ``chain_objf_and_grad``: (num - den) over frames, the l2 term on the
   chain output, and the xent regularizer with numerator posteriors as soft
   targets. Gradients come from autograd (the den scan's backward is K2b).
@@ -30,7 +30,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .den_fb import NEG_INF, TINY, den_scan, final_value, leak_log
+from .den_fb import NEG_INF, TINY, den_scan, den_sparse, final_value, leak_log
 from .fst import Fst, GraphArrays, fst_to_arrays
 
 
@@ -108,7 +108,7 @@ class DenominatorGraph:
         self.initial_probs = initial_probs
         self.num_pdfs = num_pdfs
         self.factored = factored
-        self._tensors: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._tensors: Dict[str, Dict[str, object]] = {}
 
     @property
     def num_states(self) -> int:
@@ -134,9 +134,10 @@ class DenominatorGraph:
                    g.final_logprob, probs.astype(np.float32), num_pdfs,
                    factored=_try_factor_den(g))
 
-    def tensors(self, device) -> Dict[str, torch.Tensor]:
+    def tensors(self, device) -> Dict[str, object]:
         """The graph on ``device``: start/final/log_init [S], the per-arc
-        tables, and (factored graphs) A [S, S], log_self, pdf_fwd, pdf_self."""
+        tables, and (factored graphs) A [S, S], its nonzeros ``A_sparse``
+        (``den_fb.DenSparse``), log_self, pdf_fwd, pdf_self."""
         key = str(torch.device(device))
         if key not in self._tensors:
             f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -149,7 +150,8 @@ class DenominatorGraph:
                  "arc_logprob": f32(self.arc_logprob)}
             if self.factored is not None:
                 f = self.factored
-                t.update(A=f32(f.A_fwd), log_self=f32(f.log_self),
+                t.update(A=f32(f.A_fwd), A_sparse=den_sparse(f.A_fwd).to(device),
+                         log_self=f32(f.log_self),
                          pdf_fwd=i64(f.pdf_fwd), pdf_self=i64(f.pdf_self))
             self._tensors[key] = t
         return self._tensors[key]
@@ -210,7 +212,8 @@ def den_forward(loglikes: torch.Tensor, den: DenominatorGraph,
         llf = loglikes.index_select(-1, g["pdf_fwd"])
         lls = loglikes.index_select(-1, g["pdf_self"])
         log_leak = leak_log(leaky_hmm_coefficient)
-        alpha_T = den_scan(llf, lls, alpha0, g["A"], g["log_self"], log_init, log_leak)
+        alpha_T = den_scan(llf, lls, alpha0, g["A"], g["log_self"], log_init, log_leak,
+                           g["A_sparse"])
         return final_value(alpha_T, g["final"], log_init, log_leak)
 
     def leak(alpha):

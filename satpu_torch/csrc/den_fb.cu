@@ -17,36 +17,44 @@
 // The same formulas, in plain PyTorch, are satpu_torch/chain/den_fb.py's
 // den_fb_forward_plain / den_fb_backward_plain.
 //
-// Bound: bytes. A comes from the den graph's arcs and is sparse: at
-// S = 1641 (the full-scale den graph) it holds 14,924 nonzeros of 2.69 M
-// (0.55%). At B = 16 and T = 99 the forward's products need 2*B*T*nnz =
-// 47 MFLOP (0.7 us at the 67 TFLOP/s f32 rate outside the tensor cores),
-// against 42.2 MB of device-memory traffic (llf, lls and the alphas once, A
-// once: 12.6 us at 3.35 TB/s). The backward does twice the products (0.1
-// GFLOP, 1.4 us) and moves 63.0 MB (18.8 us).
+// Design: destination-sparse and persistent. A comes from the den graph's
+// arcs and is sparse (14,924 nonzeros of 1641^2 on the full-scale graph,
+// in-degree 9.1 on average and at most 17; one state fans out to all 164
+// phones). The wrapper passes A's nonzeros twice (den_fb.den_sparse): by
+// destination (row j: the in-arcs of j, ascending source) for sums, and by
+// source (row i: the out-arcs of i, ascending destination) for d_sums @ A^T;
+// states are 16-bit, pointers 32-bit, values f32. One block of 1024 threads
+// owns one batch row for all T frames (rows are independent: no grid-wide
+// barrier, one launch per direction). Thread x owns the states x, x + 1024,
+// ...; its states' alpha, emission scores and carried gradient stay in its
+// registers, and only the vectors that other threads read through the arcs
+// (e, and d_sums in the backward) go to shared memory. A frame is three
+// block reductions (max, sum, max; one without the leak), a barrier after e,
+// then each thread's in-arc sums as f32 FMAs in ascending arc order; the
+// backward adds a barrier after d_sums, each thread's out-arc sums, and one
+// block sum for the leak's d_lse. A row of more than 32 arcs (the start
+// state's fan-out) is split across the warp that owns it, lane l taking arcs
+// l, l + 32, ..., added in a fixed shuffle tree. Every reduction runs in a
+// fixed order and there are no atomics: two calls give the same bits. The
+// next frame's llf / lls (and, backward, alphas) rows are loaded into
+// registers at the top of each step, so their device-memory latency hides
+// behind the step's compute.
 //
-// Design (simple first). The TPU kernel keeps A (10.8 MB) resident in VMEM
-// and carries alpha across a sequential grid. Hopper has neither 10 MB of
-// on-chip memory per block nor an ordered grid, so each C entry point loops
-// over t on the caller's stream and launches one kernel per step (three per
-// step in the backward: column tiles, row tiles, then one block per batch
-// row for the leak's full-row sum). A stays in device memory and is re-read
-// from the 50 MB L2 each step. A forward block owns 8 batch rows (one warp
-// each) and 32 state columns (one lane each): it reduces its rows of alpha
-// itself (6.6 KB a row at S = 1641, so no grid-wide sync), stages
-// e = exp(leaked - m) in shared memory ([S][8], i-major), and each warp
-// accumulates e @ A over every 8th i with f32 FMAs; the 8 warps' partial
-// sums are added in a fixed order, so results do not vary from run to run.
-// Products use plain f32 FMA (no TF32, no fast-math intrinsics). The
-// products run over A densely, 99.45% of them on zeros, and the rest of the
-// time goes to re-reading A and to T (3T in the backward) launches of small
-// grids. Gathering A's nonzeros by destination state (about 120 KB, which
-// fits one SM's shared memory) and running all T frames of a batch row in
-// one persistent launch per direction is left for a later change.
+// Placement: when the arc arrays fit the block's shared memory beside the
+// row vectors (forward 96 KB, backward 192 KB at S = 1641), they are copied
+// there once per block with cp.async; otherwise (e.g. S = 4001, 234 KB by
+// destination alone) the same kernel reads them from device memory through
+// the read-only path, where they stay resident in the 50 MB L2.
+//
+// Bound: the serial chain of T steps, each a handful of block-wide
+// reductions and barriers, not bytes (llf, lls and the alphas once, A's
+// sparse form once: 31.5 MB forward, 9.4 us at 3.35 TB/s, at B = 16, T =
+// 99) or operations (2 B T nnz = 47 MFLOP forward, 0.7 us). One block per
+// batch row fills B of the 132 SMs.
 //
 // Sentinels follow the TPU kernel: NEG_INF = -1e30 (finite), exp(x - y) is 0
 // wherever y <= NEG_INF / 2, and log_leak < NEG_INF / 2 switches the leak
-// off.
+// off. Plain f32 FMA, no TF32, no fast-math intrinsics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,11 +63,47 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kTiny = 1e-30f;  // a normal f32: log(kTiny) is finite
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps;    // batch rows per block, one warp each
-constexpr int kCols = 32;        // state columns per column-tile block
-constexpr int kRowTile = 32;     // states per row-tile block (backward)
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPer = 6;        // states a thread owns, at most
+constexpr int kSplit = 32;        // rows with more arcs are split across a warp
+constexpr int kMaxIndex = 32767;  // states are int16
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kWarps == 32, "a block reduction reads one partial per lane");
+
+// A's nonzeros by destination or by source: the arcs of state s are
+// ptr[s] .. ptr[s + 1] - 1, with the other state in idx (ascending) and A's
+// entry in val.
+struct Arcs {
+  const int* ptr;
+  const short* idx;
+  const float* val;
+};
+
+struct FwdArgs {
+  const float* llf;
+  const float* lls;
+  Arcs in;
+  const float* log_self;
+  const float* log_init;
+  float log_leak;
+  float* alphas;
+  int B, T, S, nnz;
+};
+
+struct BwdArgs {
+  const float* g_final;
+  const float* alphas;
+  const float* llf;
+  const float* lls;
+  Arcs in, out;
+  const float* log_self;
+  const float* log_init;
+  float log_leak;
+  float* dllf;
+  float* dlls;
+  int B, T, S, nnz;
+};
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
@@ -70,342 +114,403 @@ __device__ __forceinline__ float guard_exp(float x, float y) {
   return y > kNegInf / 2 ? expf(x - y) : 0.0f;
 }
 
+// xor butterflies: every lane ends with the same bits
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float leak_of(float a, float log_init_i, float log_leak,
-                                         float lse, bool leak) {
-  return leak ? logaddexp(a, log_leak + log_init_i + lse) : a;
+// Block reductions: each warp reduces its lanes, then every warp reduces the
+// kWarps partials the same way, so every thread holds the same result. `red`
+// is kWarps floats that no other reduction of the step uses.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  return warp_max(red[threadIdx.x % 32]);
 }
 
-// Warp `warp` reduces batch row b0 + warp of alpha [B, S]: lse and m go to
-// stat_s[warp] and stat_s[kRows + warp], exp(leaked - m) to e_s[i * kRows +
-// warp]. Rows past B stage zeros.
-__device__ void stage_rows(const float* __restrict__ alpha,
-                           const float* __restrict__ log_init, float log_leak,
-                           bool leak, int b0, int nb, int S, float* e_s,
-                           float* stat_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp >= nb) {
-    for (int i = lane; i < S; i += 32) e_s[i * kRows + warp] = 0.0f;
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  return warp_sum(red[threadIdx.x % 32]);
+}
+
+// the state of this thread's slot k: threadIdx.x + k * kThreads
+__device__ __forceinline__ int state(int k) { return static_cast<int>(threadIdx.x) + k * kThreads; }
+
+template <bool kShared, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+__device__ __forceinline__ void copy_words(void* dst, const void* src, int n) {
+  unsigned* d = static_cast<unsigned*>(dst);
+  const unsigned* s = static_cast<const unsigned*>(src);
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(d + k));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(s + k));
+  }
+}
+
+__host__ __device__ constexpr long long arcs_bytes(int S, int nnz) {
+  return 4LL * (S + 1) + 4LL * nnz + 2LL * (nnz + (nnz & 1));
+}
+
+// Starts the copy of g's arrays to shared memory at `at` (ptr, val, then idx
+// padded to whole words: arcs_bytes(S, nnz) bytes) and returns the copy. The
+// caller waits for the copies and synchronises the block.
+__device__ Arcs stage(Arcs g, int S, int nnz, char* at) {
+  int* ptr = reinterpret_cast<int*>(at);
+  float* val = reinterpret_cast<float*>(ptr + S + 1);
+  short* idx = reinterpret_cast<short*>(val + nnz);
+  copy_words(ptr, g.ptr, S + 1);
+  copy_words(val, g.val, nnz);
+  copy_words(idx, g.idx, nnz / 2);
+  if ((nnz & 1) && threadIdx.x == 0) idx[nnz - 1] = g.idx[nnz - 1];
+  return {ptr, idx, val};
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// sum over the arcs p of state s of x[idx[p]] * val[p] (0 for s >= S). A
+// row of at most kSplit arcs runs in its owner thread in ascending order; a
+// longer one is split across the owner's warp: lane l takes arcs l, l + 32,
+// ..., and the warp adds the partial sums in a fixed tree. Every thread of
+// the block calls it.
+template <bool kShared>
+__device__ float row_sum(const Arcs& a, const float* x, int s, int S) {
+  const int lane = threadIdx.x % 32;
+  int lo = 0, hi = 0;
+  if (s < S) {
+    lo = ld<kShared>(a.ptr + s);
+    hi = ld<kShared>(a.ptr + s + 1);
+  }
+  const bool split = hi - lo > kSplit;
+  float acc = 0.0f;
+  if (!split)
+    for (int p = lo; p < hi; ++p)
+      acc = fmaf(x[ld<kShared>(a.idx + p)], ld<kShared>(a.val + p), acc);
+  for (unsigned todo = __ballot_sync(kFull, split); todo; todo &= todo - 1) {
+    const int owner = __ffs(todo) - 1;
+    const int l = __shfl_sync(kFull, lo, owner), h = __shfl_sync(kFull, hi, owner);
+    float part = 0.0f;
+    for (int p = l + lane; p < h; p += 32)
+      part = fmaf(x[ld<kShared>(a.idx + p)], ld<kShared>(a.val + p), part);
+    part = warp_sum(part);
+    if (lane == owner) acc = part;
+  }
+  return acc;
+}
+
+// The row's lse = logsumexp(alpha) and m = max(leaked) (0 where the row is
+// all NEG_INF), and this thread's leaked. kl = log_leak + log_init of the
+// thread's states. Three block reductions with the leak; without it one
+// (leaked = alpha, m from alpha's max, lse unused).
+template <int kPer>
+__device__ void row_stats(const float (&alpha)[kPer], const float (&kl)[kPer], bool leak, int S,
+                          float* red, float& lse, float& m, float (&leaked)[kPer]) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (state(k) < S) mx = fmaxf(mx, alpha[k]);
+  mx = block_max(mx, red);
+  const float m0 = mx > kNegInf / 2 ? mx : 0.0f;
+  if (!leak) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) leaked[k] = alpha[k];
+    lse = 0.0f;
+    m = m0;
     return;
   }
-  const float* row = alpha + static_cast<long long>(b0 + warp) * S;
-  float mx = -INFINITY;
-  for (int i = lane; i < S; i += 32) mx = fmaxf(mx, row[i]);
-  mx = warp_max(mx);
-  const float m0 = mx > kNegInf / 2 ? mx : 0.0f;
   float s = 0.0f;
-  for (int i = lane; i < S; i += 32) s += expf(row[i] - m0);
-  const float lse = logf(warp_sum(s)) + m0;
-  float m = mx;  // without the leak, leaked == alpha
-  if (leak) {
-    m = -INFINITY;
-    for (int i = lane; i < S; i += 32)
-      m = fmaxf(m, leak_of(row[i], log_init[i], log_leak, lse, true));
-    m = warp_max(m);
-  }
-  m = m > kNegInf / 2 ? m : 0.0f;
-  for (int i = lane; i < S; i += 32)
-    e_s[i * kRows + warp] = expf(leak_of(row[i], log_init[i], log_leak, lse, leak) - m);
-  if (lane == 0) {
-    stat_s[warp] = lse;
-    stat_s[kRows + warp] = m;
-  }
-}
-
-// sums[b0 + warp, c0 + lane] = sum_i e_s[i][warp] * A[i, c0 + lane]: each
-// warp takes every kWarps-th i for all kRows rows, then the block adds the
-// warps' partial sums in order. Returns this thread's sum.
-__device__ float column_sums(const float* __restrict__ A, int S, int c0,
-                             const float* e_s, float* part_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j = c0 + lane;
-  float acc[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  if (j < S) {
-#pragma unroll 4
-    for (int i = warp; i < S; i += kWarps) {
-      const float a = A[static_cast<long long>(i) * S + j];
-      const float4 lo = *reinterpret_cast<const float4*>(e_s + i * kRows);
-      const float4 hi = *reinterpret_cast<const float4*>(e_s + i * kRows + 4);
-      acc[0] = fmaf(lo.x, a, acc[0]);
-      acc[1] = fmaf(lo.y, a, acc[1]);
-      acc[2] = fmaf(lo.z, a, acc[2]);
-      acc[3] = fmaf(lo.w, a, acc[3]);
-      acc[4] = fmaf(hi.x, a, acc[4]);
-      acc[5] = fmaf(hi.y, a, acc[5]);
-      acc[6] = fmaf(hi.z, a, acc[6]);
-      acc[7] = fmaf(hi.w, a, acc[7]);
-    }
-  }
+  for (int k = 0; k < kPer; ++k)
+    if (state(k) < S) s += expf(alpha[k] - m0);
+  lse = logf(block_sum(s, red + kWarps)) + m0;
+  float ml = -INFINITY;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) part_s[(warp * kRows + r) * kCols + lane] = acc[r];
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kWarps; ++w) total += part_s[(w * kRows + warp) * kCols + lane];
-  return total;
+  for (int k = 0; k < kPer; ++k) {
+    leaked[k] = logaddexp(alpha[k], kl[k] + lse);
+    if (state(k) < S) ml = fmaxf(ml, leaked[k]);
+  }
+  ml = block_max(ml, red + 2 * kWarps);
+  m = ml > kNegInf / 2 ? ml : 0.0f;
 }
 
-size_t column_smem(int S) {
-  return (static_cast<size_t>(S) * kRows + kWarps * kRows * kCols + 2 * kRows) * sizeof(float);
-}
-
-// One forward step: alpha_t [B, S] -> alpha_next [B, S]. llf/lls point at
-// frame t of [B, T, S] tensors, ll_stride = T * S between batch rows.
-__global__ void __launch_bounds__(kThreads)
-den_fwd_step(const float* __restrict__ alpha, float* __restrict__ alpha_next,
-             const float* __restrict__ llf, const float* __restrict__ lls,
-             long long ll_stride, const float* __restrict__ A,
-             const float* __restrict__ log_self, const float* __restrict__ log_init,
-             float log_leak, int B, int S) {
+// Forward, one block per batch row, all T frames: alphas [T + 1, B, S] with
+// alphas[0] filled by the caller; llf, lls [B, T, S].
+template <int kPer, bool kShared>
+__global__ void __launch_bounds__(kThreads, 1) den_fwd(FwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* e_s = reinterpret_cast<float*>(smem4);
-  float* part_s = e_s + static_cast<size_t>(S) * kRows;
-  float* stat_s = part_s + kWarps * kRows * kCols;
-  const bool leak = log_leak > kNegInf / 2;
-  const int b0 = blockIdx.y * kRows, nb = min(kRows, B - b0), c0 = blockIdx.x * kCols;
-  stage_rows(alpha, log_init, log_leak, leak, b0, nb, S, e_s, stat_s);
-  __syncthreads();
-  const float sums = column_sums(A, S, c0, e_s, part_s);
-  const int r = threadIdx.x / 32, j = c0 + threadIdx.x % 32;
-  if (r >= nb || j >= S) return;
-  const int b = b0 + r;
-  const float lse = stat_s[r], m = stat_s[kRows + r];
-  const float leaked = leak_of(alpha[static_cast<long long>(b) * S + j], log_init[j],
-                               log_leak, lse, leak);
-  const float cross = logf(fmaxf(sums, kTiny)) + m + llf[b * ll_stride + j];
-  const float selfp = leaked + log_self[j] + lls[b * ll_stride + j];
-  alpha_next[static_cast<long long>(b) * S + j] = fmaxf(logaddexp(cross, selfp), kNegInf);
-}
-
-// Backward (a), column tiles: recompute the step, then the logaddexp branch
-// weights w_cross -> dllf, w_self -> dlls, and d_sums = w_cross / sums.
-// Blocks of column tile 0 also store the rows' (lse, m) in stats [B, 2].
-__global__ void __launch_bounds__(kThreads)
-den_bwd_cols(const float* __restrict__ alpha, const float* __restrict__ newa,
-             const float* __restrict__ g_next, const float* __restrict__ llf,
-             const float* __restrict__ lls, long long ll_stride,
-             const float* __restrict__ A, const float* __restrict__ log_self,
-             const float* __restrict__ log_init, float log_leak,
-             float* __restrict__ dllf, float* __restrict__ dlls,
-             float* __restrict__ d_sums, float* __restrict__ stats, int B, int S) {
-  extern __shared__ float4 smem4[];
-  float* e_s = reinterpret_cast<float*>(smem4);
-  float* part_s = e_s + static_cast<size_t>(S) * kRows;
-  float* stat_s = part_s + kWarps * kRows * kCols;
-  const bool leak = log_leak > kNegInf / 2;
-  const int b0 = blockIdx.y * kRows, nb = min(kRows, B - b0), c0 = blockIdx.x * kCols;
-  stage_rows(alpha, log_init, log_leak, leak, b0, nb, S, e_s, stat_s);
-  __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x < nb) {
-    stats[2 * (b0 + threadIdx.x)] = stat_s[threadIdx.x];
-    stats[2 * (b0 + threadIdx.x) + 1] = stat_s[kRows + threadIdx.x];
+  float* red = reinterpret_cast<float*>(smem4);  // reduction partials, 4 x kWarps
+  float* e_s = red + 4 * kWarps;                  // [S]
+  const int S = a.S, T = a.T;
+  Arcs in = a.in;
+  if constexpr (kShared) {
+    in = stage(in, S, a.nnz, reinterpret_cast<char*>(e_s + S));
+    wait_copies();
   }
-  const float sums = column_sums(A, S, c0, e_s, part_s);
-  const int r = threadIdx.x / 32, j = c0 + threadIdx.x % 32;
-  if (r >= nb || j >= S) return;
-  const int b = b0 + r;
-  const long long bj = static_cast<long long>(b) * S + j;
-  const float lse = stat_s[r], m = stat_s[kRows + r];
-  const float leaked = leak_of(alpha[bj], log_init[j], log_leak, lse, leak);
-  const float cross = logf(fmaxf(sums, kTiny)) + m + llf[b * ll_stride + j];
-  const float selfp = leaked + log_self[j] + lls[b * ll_stride + j];
-  // the clamp max(lae, NEG_INF) passes gradient where it is inactive
-  const float na = newa[bj];
-  const bool live = na > kNegInf;
-  const float g = g_next[bj];
-  const float w_cross = live ? g * guard_exp(cross, na) : 0.0f;
-  const float w_self = live ? g * guard_exp(selfp, na) : 0.0f;
-  dllf[b * ll_stride + j] = w_cross;
-  dlls[b * ll_stride + j] = w_self;
-  d_sums[bj] = sums > kTiny ? w_cross / fmaxf(sums, kTiny) : 0.0f;
-}
-
-// Backward (b), row tiles: d_e[b, i] = sum_j d_sums[b, j] * A[i, j], then
-// g_leaked = e * d_e + w_self (w_self read back from dlls at this frame).
-// d_sums rows are staged b-major in shared memory; warp w takes states
-// i0 + w, i0 + w + kWarps, ... and its lanes walk A's row i contiguously.
-__global__ void __launch_bounds__(kThreads)
-den_bwd_rows(const float* __restrict__ d_sums, const float* __restrict__ A,
-             const float* __restrict__ alpha, const float* __restrict__ dlls,
-             long long ll_stride, const float* __restrict__ log_init, float log_leak,
-             const float* __restrict__ stats, float* __restrict__ g_leaked, int B,
-             int S) {
-  extern __shared__ float4 smem4[];
-  float* ds_s = reinterpret_cast<float*>(smem4);
-  const bool leak = log_leak > kNegInf / 2;
-  const int b0 = blockIdx.y * kRows, nb = min(kRows, B - b0), i0 = blockIdx.x * kRowTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* src = d_sums + static_cast<long long>(b0) * S;
-  for (int k = threadIdx.x; k < kRows * S; k += kThreads)
-    ds_s[k] = k < nb * S ? src[k] : 0.0f;
-  __syncthreads();
-  for (int ii = warp; ii < kRowTile; ii += kWarps) {
-    const int i = i0 + ii;
-    if (i >= S) break;
-    const float* arow = A + static_cast<long long>(i) * S;
-    float acc[kRows];
+  const bool leak = a.log_leak > kNegInf / 2;
+  const long long bs = static_cast<long long>(a.B) * S;
+  const float* __restrict__ llf = a.llf + blockIdx.x * static_cast<long long>(T) * S;
+  const float* __restrict__ lls = a.lls + blockIdx.x * static_cast<long long>(T) * S;
+  float* __restrict__ row = a.alphas + blockIdx.x * static_cast<long long>(S);  // + t * bs
+  float alpha[kPer], kl[kPer], lself[kPer], cf[kPer], cs[kPer];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-    for (int j = lane; j < S; j += 32) {
-      const float a = arow[j];
+  for (int k = 0; k < kPer; ++k) {
+    const int j = state(k);
+    const bool v = j < S;
+    alpha[k] = v ? row[j] : kNegInf;
+    kl[k] = v ? a.log_leak + a.log_init[j] : 0.0f;
+    lself[k] = v ? a.log_self[j] : 0.0f;
+    cf[k] = v ? llf[j] : 0.0f;
+    cs[k] = v ? lls[j] : 0.0f;
+  }
+  __syncthreads();  // the staged arcs
+  for (int t = 0; t < T; ++t) {
+    const long long next = static_cast<long long>(min(t + 1, T - 1)) * S;
+    float nf[kPer], ns[kPer];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(ds_s[r * S + j], a, acc[r]);
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      nf[k] = j < S ? llf[next + j] : 0.0f;
+      ns[k] = j < S ? lls[next + j] : 0.0f;
     }
-    float d_e = 0.0f;
+    float leaked[kPer], lse, m;
+    row_stats<kPer>(alpha, kl, leak, S, red, lse, m, leaked);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float v = warp_sum(acc[r]);
-      if (lane == r) d_e = v;
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      if (j < S) e_s[j] = expf(leaked[k] - m);
     }
-    if (lane < nb) {
-      const int b = b0 + lane;
-      const long long bi = static_cast<long long>(b) * S + i;
-      const float lse = stats[2 * b], m = stats[2 * b + 1];
-      const float e = expf(leak_of(alpha[bi], log_init[i], log_leak, lse, leak) - m);
-      g_leaked[bi] = e * d_e + dlls[b * ll_stride + i];
+    __syncthreads();
+    float* __restrict__ out = row + (t + 1) * bs;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      const float sums = row_sum<kShared>(in, e_s, j, S);
+      if (j < S) {
+        const float cross = logf(fmaxf(sums, kTiny)) + m + cf[k];
+        const float selfp = leaked[k] + lself[k] + cs[k];
+        alpha[k] = fmaxf(logaddexp(cross, selfp), kNegInf);
+        out[j] = alpha[k];
+      }
+      cf[k] = nf[k];
+      cs[k] = ns[k];
     }
   }
 }
 
-__device__ float block_sum(float v, float* red_s) {
-  v = warp_sum(v);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red_s[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kWarps; ++w) total += red_s[w];
-  return total;
-}
-
-// Backward (c), one block per batch row: the leak's VJP. With
-// leaked = logaddexp(alpha, k + lse) and lse = logsumexp(alpha):
-//   d_lse   = sum_i g_leaked[i] * exp(k_i + lse - leaked_i)
-//   g_alpha = g_leaked * exp(alpha - leaked) + d_lse * exp(alpha - lse)
-// g_alpha is dL/d alpha_t, carried to the step before.
-__global__ void __launch_bounds__(kThreads)
-den_bwd_leak(const float* __restrict__ g_leaked, const float* __restrict__ alpha,
-             const float* __restrict__ log_init, float log_leak,
-             const float* __restrict__ stats, float* __restrict__ g_alpha, int S) {
-  __shared__ float red_s[kWarps];
-  const bool leak = log_leak > kNegInf / 2;
-  const int b = blockIdx.x;
-  const long long off = static_cast<long long>(b) * S;
-  const float lse = stats[2 * b];
-  float d_lse = 0.0f;
-  if (leak) {
+// Backward, one block per batch row, t = T - 1 ... 0: dllf, dlls [B, T, S]
+// from g_final [B, S] = dL/d alpha_T and the forward's alphas. The carried
+// gradient dL/d alpha_t stays in registers.
+template <int kPer, bool kShared>
+__global__ void __launch_bounds__(kThreads, 1) den_bwd(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);  // reduction partials, 4 x kWarps
+  float* e_s = red + 4 * kWarps;                  // [S]
+  float* ds_s = e_s + a.S;                        // [S] d_sums
+  const int S = a.S, T = a.T;
+  Arcs in = a.in, out = a.out;
+  if constexpr (kShared) {
+    char* at = reinterpret_cast<char*>(ds_s + S);
+    in = stage(in, S, a.nnz, at);
+    out = stage(out, S, a.nnz, at + arcs_bytes(S, a.nnz));
+    wait_copies();
+  }
+  const bool leak = a.log_leak > kNegInf / 2;
+  const long long bs = static_cast<long long>(a.B) * S;
+  const long long off = blockIdx.x * static_cast<long long>(T) * S;  // [B, T, S] row
+  const float* __restrict__ llf = a.llf + off;
+  const float* __restrict__ lls = a.lls + off;
+  float* __restrict__ dllf = a.dllf + off;
+  float* __restrict__ dlls = a.dlls + off;
+  const float* __restrict__ row = a.alphas + blockIdx.x * static_cast<long long>(S);
+  float g[kPer], newa[kPer], alpha[kPer], kl[kPer], lself[kPer], cf[kPer], cs[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = state(k);
+    const bool v = j < S;
+    const long long last = static_cast<long long>(T - 1) * S;
+    g[k] = v ? a.g_final[blockIdx.x * static_cast<long long>(S) + j] : 0.0f;
+    newa[k] = v ? row[T * bs + j] : kNegInf;
+    alpha[k] = v ? row[(T - 1) * bs + j] : kNegInf;
+    kl[k] = v ? a.log_leak + a.log_init[j] : 0.0f;
+    lself[k] = v ? a.log_self[j] : 0.0f;
+    cf[k] = v ? llf[last + j] : 0.0f;
+    cs[k] = v ? lls[last + j] : 0.0f;
+  }
+  __syncthreads();  // the staged arcs
+  for (int t = T - 1; t >= 0; --t) {
+    const int tp = max(t - 1, 0);
+    float pa[kPer], nf[kPer], ns[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      const bool v = j < S;
+      pa[k] = v ? row[tp * bs + j] : kNegInf;
+      nf[k] = v ? llf[static_cast<long long>(tp) * S + j] : 0.0f;
+      ns[k] = v ? lls[static_cast<long long>(tp) * S + j] : 0.0f;
+    }
+    float leaked[kPer], e[kPer], ws[kPer], lse, m;
+    row_stats<kPer>(alpha, kl, leak, S, red, lse, m, leaked);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      e[k] = j < S ? expf(leaked[k] - m) : 0.0f;
+      if (j < S) e_s[j] = e[k];
+    }
+    __syncthreads();
+    const long long f = static_cast<long long>(t) * S;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = state(k);
+      const float sums = row_sum<kShared>(in, e_s, j, S);
+      ws[k] = 0.0f;
+      if (j < S) {
+        const float cross = logf(fmaxf(sums, kTiny)) + m + cf[k];
+        const float selfp = leaked[k] + lself[k] + cs[k];
+        // the clamp max(lae, NEG_INF) passes gradient where it is inactive
+        const bool live = newa[k] > kNegInf;
+        const float wc = live ? g[k] * guard_exp(cross, newa[k]) : 0.0f;
+        ws[k] = live ? g[k] * guard_exp(selfp, newa[k]) : 0.0f;
+        dllf[f + j] = wc;
+        dlls[f + j] = ws[k];
+        ds_s[j] = sums > kTiny ? wc / fmaxf(sums, kTiny) : 0.0f;
+      }
+    }
+    __syncthreads();
+    // g_leaked = e * (d_sums @ A^T) + w_self, then the leak's VJP: with
+    // leaked = logaddexp(alpha, k + lse) and lse = logsumexp(alpha),
+    //   d_lse   = sum_i g_leaked[i] * exp(k_i + lse - leaked_i)
+    //   g_alpha = g_leaked * exp(alpha - leaked) + d_lse * exp(alpha - lse)
     float part = 0.0f;
-    for (int i = threadIdx.x; i < S; i += kThreads) {
-      const float k = log_leak + log_init[i];
-      const float leaked = logaddexp(alpha[off + i], k + lse);
-      part += g_leaked[off + i] * guard_exp(k + lse, leaked);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = state(k);
+      const float gl = e[k] * row_sum<kShared>(out, ds_s, i, S) + ws[k];
+      g[k] = gl * guard_exp(alpha[k], leaked[k]);
+      if (leak && i < S) part += gl * guard_exp(kl[k] + lse, leaked[k]);
     }
-    d_lse = block_sum(part, red_s);
+    if (leak) {
+      const float d_lse = block_sum(part, red + 3 * kWarps);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) g[k] += d_lse * guard_exp(alpha[k], lse);
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      newa[k] = alpha[k];
+      alpha[k] = pa[k];
+      cf[k] = nf[k];
+      cs[k] = ns[k];
+    }
   }
-  for (int i = threadIdx.x; i < S; i += kThreads) {
-    const float a = alpha[off + i];
-    const float leaked = leak_of(a, log_init[i], log_leak, lse, leak);
-    float g = g_leaked[off + i] * guard_exp(a, leaked);
-    if (leak) g += d_lse * guard_exp(a, lse);
-    g_alpha[off + i] = g;
-  }
+}
+
+long long smem_bytes(int S, int nnz, bool backward, bool shared) {
+  const int forms = backward ? 2 : 1;  // e (and d_sums); A by destination (and by source)
+  long long bytes = 4LL * (4 * kWarps + forms * S);
+  if (shared) bytes += forms * arcs_bytes(S, nnz);
+  return bytes;
 }
 
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
+int set_smem(Kernel kernel, long long bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-}  // namespace
+template <typename Args>
+using Launch = int (*)(const Args&, long long, cudaStream_t);
 
-// Shared memory a block needs at S states: the larger of the column-tile
-// kernels' and the row-tile kernel's. The wrapper refuses S above the card's
-// 227 KB per block.
-extern "C" long long satpu_den_smem_bytes(int S) {
-  const size_t rows = static_cast<size_t>(S) * kRows * sizeof(float);
-  const size_t cols = column_smem(S);
-  return static_cast<long long>(cols > rows ? cols : rows);
+template <int kPer, bool kShared>
+int launch_fwd(const FwdArgs& a, long long smem, cudaStream_t st) {
+  int err = set_smem(den_fwd<kPer, kShared>, smem);
+  if (err) return err;
+  den_fwd<kPer, kShared><<<a.B, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Forward: llf, lls [B, T, S]; A [S, S]; log_self, log_init [S]; alphas
-// [T + 1, B, S] with alphas[0] = alpha_0 filled by the caller. Writes
-// alphas[1..T]. All contiguous f32 device buffers. Launches T kernels on
-// `stream`; returns the first cudaGetLastError() that is not 0.
-extern "C" int satpu_den_fwd(const float* llf, const float* lls, const float* A,
-                             const float* log_self, const float* log_init,
-                             float log_leak, float* alphas, int B, int T, int S,
-                             void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  const size_t smem = column_smem(S);
-  int err = set_smem(den_fwd_step, smem);
+template <int kPer, bool kShared>
+int launch_bwd(const BwdArgs& a, long long smem, cudaStream_t st) {
+  int err = set_smem(den_bwd<kPer, kShared>, smem);
   if (err) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + kCols - 1) / kCols, (B + kRows - 1) / kRows);
-  const long long bs = static_cast<long long>(B) * S, ll_stride = static_cast<long long>(T) * S;
-  for (int t = 0; t < T; ++t) {
-    den_fwd_step<<<grid, kThreads, smem, st>>>(alphas + t * bs, alphas + (t + 1) * bs,
-                                               llf + static_cast<long long>(t) * S,
-                                               lls + static_cast<long long>(t) * S, ll_stride,
-                                               A, log_self, log_init, log_leak, B, S);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-  }
-  return 0;
+  den_bwd<kPer, kShared><<<a.B, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiations, by tier(S) (kPer 2, 4, 6) and placement (global, shared)
+const Launch<FwdArgs> kFwd[3][2] = {{launch_fwd<2, false>, launch_fwd<2, true>},
+                                    {launch_fwd<4, false>, launch_fwd<4, true>},
+                                    {launch_fwd<6, false>, launch_fwd<6, true>}};
+const Launch<BwdArgs> kBwd[3][2] = {{launch_bwd<2, false>, launch_bwd<2, true>},
+                                    {launch_bwd<4, false>, launch_bwd<4, true>},
+                                    {launch_bwd<6, false>, launch_bwd<6, true>}};
+
+int tier(int S) { return (S - 1) / (2 * kThreads); }  // 0, 1, 2: kPer = 2 (tier + 1)
+
+bool takes(int S, int nnz) { return S > 0 && S <= kMaxIndex && S <= kMaxPer * kThreads && nnz >= 0; }
+
+}  // namespace
+
+// The most states the kernels take.
+extern "C" int satpu_den_max_states() {
+  return kMaxPer * kThreads < kMaxIndex ? kMaxPer * kThreads : kMaxIndex;
+}
+
+// Dynamic shared memory of one block at S states and nnz arcs, with the
+// arcs in shared memory (shared = 1) or read from device memory (0).
+extern "C" long long satpu_den_smem_bytes(int S, int nnz, int backward, int shared) {
+  return smem_bytes(S, nnz, backward != 0, shared != 0);
+}
+
+// Forward: llf, lls [B, T, S]; A's arcs by destination (in_ptr [S + 1]
+// int32, in_src [nnz] int16, in_val [nnz] f32); log_self, log_init [S];
+// alphas [T + 1, B, S] with alphas[0] = alpha_0 filled by the caller. Writes
+// alphas[1..T]. All contiguous device buffers. One launch on `stream`;
+// returns its cudaGetLastError(), or cudaErrorInvalidValue for sizes the
+// kernel does not take.
+extern "C" int satpu_den_fwd(const float* llf, const float* lls, const int* in_ptr,
+                             const short* in_src, const float* in_val, const float* log_self,
+                             const float* log_init, float log_leak, float* alphas, int B,
+                             int T, int S, int nnz, int shared, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (!takes(S, nnz)) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{llf, lls, {in_ptr, in_src, in_val}, log_self, log_init, log_leak, alphas,
+                  B, T, S, nnz};
+  return kFwd[tier(S)][shared != 0](a, smem_bytes(S, nnz, false, shared != 0),
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // Backward: g_final [B, S] = dL/d alpha_T; alphas [T + 1, B, S] from the
-// forward; writes dllf, dlls [B, T, S]. work: 3 * B * S + 2 * B floats of
-// scratch (the carried gradient, d_sums, g_leaked, the rows' (lse, m)).
-// Launches 3 T kernels on `stream`; returns the first error that is not 0.
+// forward; A's arcs by destination and by source (out_ptr [S + 1], out_dst
+// [nnz], out_val [nnz]); writes dllf, dlls [B, T, S]. One launch on
+// `stream`; returns as satpu_den_fwd.
 extern "C" int satpu_den_bwd(const float* g_final, const float* alphas, const float* llf,
-                             const float* lls, const float* A, const float* log_self,
-                             const float* log_init, float log_leak, float* dllf,
-                             float* dlls, float* work, int B, int T, int S,
-                             void* stream) {
+                             const float* lls, const int* in_ptr, const short* in_src,
+                             const float* in_val, const int* out_ptr, const short* out_dst,
+                             const float* out_val, const float* log_self,
+                             const float* log_init, float log_leak, float* dllf, float* dlls,
+                             int B, int T, int S, int nnz, int shared, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  const long long bs = static_cast<long long>(B) * S, ll_stride = static_cast<long long>(T) * S;
-  float* carry = work;
-  float* d_sums = work + bs;
-  float* g_leaked = work + 2 * bs;
-  float* stats = work + 3 * bs;
-  const size_t smem_cols = column_smem(S);
-  const size_t smem_rows = static_cast<size_t>(S) * kRows * sizeof(float);
-  int err = set_smem(den_bwd_cols, smem_cols);
-  if (!err) err = set_smem(den_bwd_rows, smem_rows);
-  if (err) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = static_cast<int>(cudaMemcpyAsync(carry, g_final, bs * sizeof(float),
-                                         cudaMemcpyDeviceToDevice, st));
-  if (err) return err;
-  const dim3 grid_cols((S + kCols - 1) / kCols, (B + kRows - 1) / kRows);
-  const dim3 grid_rows((S + kRowTile - 1) / kRowTile, (B + kRows - 1) / kRows);
-  for (int t = T - 1; t >= 0; --t) {
-    const float* alpha = alphas + t * bs;
-    const long long f = static_cast<long long>(t) * S;
-    den_bwd_cols<<<grid_cols, kThreads, smem_cols, st>>>(
-        alpha, alpha + bs, carry, llf + f, lls + f, ll_stride, A, log_self, log_init,
-        log_leak, dllf + f, dlls + f, d_sums, stats, B, S);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    den_bwd_rows<<<grid_rows, kThreads, smem_rows, st>>>(
-        d_sums, A, alpha, dlls + f, ll_stride, log_init, log_leak, stats, g_leaked, B, S);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    den_bwd_leak<<<B, kThreads, 0, st>>>(g_leaked, alpha, log_init, log_leak, stats, carry, S);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-  }
-  return 0;
+  if (!takes(S, nnz)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{g_final, alphas, llf, lls, {in_ptr, in_src, in_val},
+                  {out_ptr, out_dst, out_val}, log_self, log_init, log_leak, dllf, dlls,
+                  B, T, S, nnz};
+  return kBwd[tier(S)][shared != 0](a, smem_bytes(S, nnz, true, shared != 0),
+                                           static_cast<cudaStream_t>(stream));
 }
