@@ -6,7 +6,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 1. build: compiles every CUDA kernel from satpu_torch/csrc with nvcc
    (sm_90a), one nvcc per source, all started together;
 2. kernel: holds the SHC kernel against its plain PyTorch version at the
-   serving path's shapes (random and real YAAPT inputs) and times both;
+   serving path's shapes (random and real YAAPT inputs at 8000, 16000 and
+   64000 frames, two calls bitwise equal) and times it at each;
 3. slice: builds the flagship anonymizer at full width (TDNNF 1024 + VQ-48,
    3280 outputs, 247 speakers, HiFi-GAN 512, bf16 serving policy; random
    weights from a seed), saves it, and runs the ``anonymize`` CLI on the
@@ -40,6 +41,9 @@ The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
 
 Usage (from the repository root):  python3 chip_smoke.py
+``python3 chip_smoke.py --kernel-only`` runs the SHC build and kernel phase
+alone (to time another tree's SHC kernel with the same phase, run this
+file from that tree's root).
 """
 from __future__ import annotations
 
@@ -128,7 +132,7 @@ def bound(ops: float, nbytes: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_build():
+def phase_build(sources=KERNEL_SOURCES):
     """Every kernel source, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -139,8 +143,8 @@ def phase_build():
         path, log = cuda_build.build(name, force=True)
         return name, path, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        built = list(pool.map(build, KERNEL_SOURCES))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build, sources))
     for name, path, log, secs in built:
         print(f"[build] csrc/{name}.cu -> {os.path.relpath(path, ROOT)} in {secs:.2f} s"
               " (nvcc sm_90a)")
@@ -171,9 +175,40 @@ def kernel_name(mangled: str) -> str:
         f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>" if args else "")
 
 
+def shc_wavefronts(lib, M: int, I: int, H: int, J: int):
+    """Shared-memory wavefronts an output of csrc/shc.cu, by a model of its
+    design over the phase layout the built library ``lib`` reports
+    (``satpu_shc_layout``): {part: wavefronts}. A warp's access of 4/8/16
+    bytes a lane is 1/2/4 wavefronts without conflicts; a scalar store with k
+    lanes on one bank is k."""
+    import ctypes
+
+    words = (ctypes.c_int * (3 * H + 1))()
+    check(lib.satpu_shc_layout(I, H, J, words) == 0, "satpu_shc_layout")
+    pitches, lens = words[1:3 * H:3], words[2:3 * H:3]
+    Q = -(-I // 4)
+
+    def store_ways(s, p, w, i):  # a warp's i-th scalar store of harmonic s
+        banks = [((e % s) * p + e // s) % 32 for e in (4 * (32 * w + l) + i for l in range(32))]
+        return max(banks.count(b) for b in set(banks))
+
+    taps = sum((3 + -(-(J - rho) // s) + 3) // 4 for s in range(1, H + 1) for rho in range(s))
+    deint = 0.0  # per frame, averaged over the frame's offset in its float4
+    for s, p, n in zip(range(1, H + 1), pitches, lens):
+        for w in range(-(-s * n // 128)):  # warp steps of 32 threads x 4 elements
+            reads = 4 * (1 + 3 / 4)  # one float4 read, two for 3 of 4 offsets
+            stores = 4 if s < 3 else sum(store_ways(s, p, w % s, i) for i in range(4))
+            deint += reads + stores
+    raw, outs = M / 32, Q / 8 + I / 32  # cp.async writes; outputs staged and read back
+    return {"taps": taps / 32, "deinterleave": deint / I, "copy": raw / I, "outputs": outs / I}
+
+
 def phase_kernel(np, torch):
-    """SHC band kernel vs its plain version; returns the kernel's JSON entry
-    (without the main path's launch count)."""
+    """SHC band kernel vs its plain version at F = 8000 (16 utterances of
+    10 s), 16000 and 64000 frames (the B=32 and B=128 x 10 s serving
+    batches), on random and real YAAPT input, two calls bitwise equal, then
+    timed at each F. Returns the kernel's JSON entry at F = 8000 (without
+    the main path's launch count)."""
     import torch.nn.functional as F
 
     from satpu_torch.models.anonymizer import YAAPT_OPTS
@@ -185,44 +220,79 @@ def phase_kernel(np, torch):
     args = (g["min_shc"], g["n_out"], g["n_harm"], g["window_length"])
     M, I, H, J = g["top_bin"] + g["half_window"], g["n_out"], g["n_harm"], g["window_length"]
 
-    # real input: the SHC magnitudes of 16 synthetic voiced 10 s utterances
+    # real input: the SHC magnitudes of 16 synthetic voiced 10 s utterances,
+    # repeated to the larger batches
     x = np.stack([voiced_utterance(np, 10.0, 100.0 + 10 * k, seed=k)[0] for k in range(16)])
     xp = F.pad(torch.from_numpy(x).cuda(), (to_pad, to_pad))
     nl = Y.bandpass(xp ** 2, p["sr"], p["bp_low"], p["bp_high"])
-    real = Y.shc_magnitude(nl, Y.num_frames(x.shape[1], p), frame_size, frame_jump, nfft, p)
-    n_frames = real.shape[0]  # B=16 x 10 s -> 8000 frames
+    real16 = Y.shc_magnitude(nl, Y.num_frames(x.shape[1], p), frame_size, frame_jump, nfft, p)
+    n_frames = real16.shape[0]  # B=16 x 10 s -> 8000 frames
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rand = torch.rand((n_frames, M), generator=gen, device="cuda")
 
-    worst = 0.0
-    for name, mag in (("random", rand), ("yaapt", real)):
-        out = Y.shc_band(mag, *args)
-        ref = Y.shc_band_plain(mag, *args)
-        torch.cuda.synchronize()
-        max_abs = (out - ref).abs().max().item()
-        rel = max_abs / ref.abs().max().item()
-        worst = max(worst, max_abs)
-        print(f"[kernel] shc_band vs plain, {name} mag [{n_frames} x {M}] -> [{n_frames} x {I}]:"
-              f" max abs err {max_abs:.3e}, rel {rel:.3e} (tolerance rel 1e-5)")
-        check(rel <= 1e-5, f"shc_band disagrees with its plain version on {name} input")
+    def shc_bound(frames):  # mag's columns from min_shc on in, shc out; J x H products an output
+        return bound(frames * I * J * H, frames * (M - g["min_shc"] + I) * 4)
 
-    def shc_bound(frames):  # mag in, shc out; J x H products an output
-        return bound(frames * I * J * H, frames * (M + I) * 4)
-
-    # time on inputs that do not stay in the 50 MB L2: cycle 4 copies
-    bufs = [torch.rand((n_frames, M), generator=gen, device="cuda") for _ in range(4)]
-    it = iter(range(1 << 30))
-    ms = cuda_ms(torch, lambda: Y.shc_band(bufs[next(it) % 4], *args), iters=200)
-    plain_ms = cuda_ms(torch, lambda: Y.shc_band_plain(bufs[0], *args), iters=5, warmup=1)
-    big = torch.rand((8 * n_frames, M), generator=gen, device="cuda")  # B=128 x 10 s
-    ms_big = cuda_ms(torch, lambda: Y.shc_band(big, *args), iters=50)
-    b, by = shc_bound(n_frames)
-    b_big, _ = shc_bound(8 * n_frames)
-    print(f"[kernel] shc_band F={n_frames}: {ms * 1e3:.1f} us (bound {b * 1e3:.1f} us by {by},"
-          f" {b / ms:.0%} of it); plain version {plain_ms * 1e3:.1f} us")
-    print(f"[kernel] shc_band F={8 * n_frames}: {ms_big * 1e3:.1f} us (bound {b_big * 1e3:.1f} us,"
-          f" {b_big / ms_big:.0%} of it)")
-    del bufs, big, rand, real
+    # the design's model (an older tree's kernel, timed with this file from
+    # that tree's root, has no layout to model)
+    lib = Y._shc_lib()
+    wf = shc_wavefronts(lib, M, I, H, J) if hasattr(lib, "satpu_shc_layout") else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    if wf:
+        print(f"[kernel] shc_band design model: {sum(wf.values()):.3f} shared-memory wavefronts"
+              " an output (" + ", ".join(f"{k} {v:.3f}" for k, v in wf.items())
+              + f"); one wavefront a clock on {sms} SMs at {mhz:.0f} MHz")
+    worst, timed = 0.0, {}
+    for rep, iters in ((1, 200), (2, 100), (8, 50)):
+        frames = rep * n_frames
+        inputs = (("random", torch.rand((frames, M), generator=gen, device="cuda")),
+                  ("yaapt", real16.repeat(rep, 1)))
+        for name, mag in inputs:
+            out = Y.shc_band(mag, *args)
+            again = Y.shc_band(mag, *args)
+            ref = Y.shc_band_plain(mag, *args)
+            torch.cuda.synchronize()
+            max_abs = (out - ref).abs().max().item()
+            rel = max_abs / ref.abs().max().item()
+            same = bool(torch.equal(out, again))
+            worst = max(worst, max_abs)
+            print(f"[kernel] shc_band vs plain, {name} mag [{frames} x {M}] -> [{frames} x {I}]:"
+                  f" max abs err {max_abs:.3e}, rel {rel:.3e} (tolerance rel 1e-5); two calls"
+                  f" bitwise equal: {same}")
+            check(rel <= 1e-5, f"shc_band disagrees with its plain version on {name} input")
+            check(same, f"two shc_band calls differ on {name} input")
+            del out, again, ref
+        del inputs, mag
+        # time on inputs that do not stay in the 50 MB L2: cycle copies of
+        # at least 150 MB together
+        n_bufs = -(-150_000_000 // (frames * M * 4))
+        bufs = [torch.rand((frames, M), generator=gen, device="cuda") for _ in range(n_bufs)]
+        it = iter(range(1 << 30))
+        ms = cuda_ms(torch, lambda: Y.shc_band(bufs[next(it) % n_bufs], *args), iters=iters)
+        b, by = shc_bound(frames)
+        timed[frames] = (ms, b, by)
+        floor = (f"; modelled shared-memory floor {frames * I * sum(wf.values()) / sms / mhz:.1f}"
+                 " us" if wf else "")
+        print(f"[kernel] shc_band F={frames}: {ms * 1e3:.1f} us (bound {b * 1e3:.1f} us by {by},"
+              f" {b / ms:.1%} of it{floor}), {n_bufs} input copies cycled")
+        if rep == 1:
+            plain_ms = cuda_ms(torch, lambda: Y.shc_band_plain(bufs[0], *args), iters=5, warmup=1)
+            print(f"[kernel] shc_band_plain F={frames}: {plain_ms * 1e3:.1f} us")
+        del bufs
+    # the wrapper's host time a call: 4-frame calls (one group, a kernel of a
+    # few us) back to back, so the host sets the pace
+    small = torch.rand((4, M), generator=gen, device="cuda")
+    Y.shc_band(small, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        Y.shc_band(small, *args)
+    torch.cuda.synchronize()
+    print(f"[kernel] shc_band host time: {(time.perf_counter() - t0) / 2000 * 1e6:.2f} us a call"
+          " (wall clock over 2000 calls at F=4)")
+    ms, b, by = timed[n_frames]
     return {"name": "shc_band", "route": "cuda", "source": "satpu_torch/csrc/shc.cu",
             "replaces": "satpu/ops/yaapt.py:588", "launches": 0, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -873,6 +943,11 @@ def main() -> int:
     print(f"[card] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, torch"
           f" {torch.__version__}, CUDA {torch.version.cuda} [{card}]")
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--kernel-only"]:  # the SHC kernel's build and phase alone
+        phase_build(("shc",))
+        phase_kernel(np, torch)
+        print(f"[done] kernel phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_build()
     # serving: anonymize (kernel K1)
     entries = [phase_kernel(np, torch)]

@@ -231,7 +231,15 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
 
     On a CUDA tensor this launches the kernel of ``csrc/shc.cu`` (and counts
     the launch in ``shc_band.launches``); on a CPU tensor it computes the
-    plain version. Any other device raises.
+    plain version, at any harmonic count. Any other device raises. The
+    kernel takes 1 to ``SHC_MAX_HARMONICS`` harmonics (a CUDA call with more
+    raises ValueError); (n_harm, window_length) = (4, 21) runs
+    its unrolled instantiation, any other its generic one (recorded in
+    ``shc_band.instantiation``); a geometry whose staged frames do not fit a
+    block's shared memory raises RuntimeError. A non-contiguous ``mag`` is
+    copied to a contiguous one; a storage offset needs no alignment beyond a
+    float's (the kernel then copies ``mag`` in 4-byte pieces, else in 16-byte
+    ones).
     """
     if mag.ndim != 2:
         raise ValueError(f"shc_band wants mag [F, M], got {tuple(mag.shape)}")
@@ -243,6 +251,11 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
         return shc_band_plain(mag, min_shc, n_out, n_harm, window_length)
     if mag.device.type != "cuda":
         raise ValueError(f"shc_band runs on cpu or cuda, not {mag.device}")
+    if not (1 <= n_harm <= SHC_MAX_HARMONICS and min_shc >= 0 and n_out >= 1
+            and window_length >= 1):
+        raise ValueError(f"the SHC kernel takes 1..{SHC_MAX_HARMONICS} harmonics, min_shc >= 0"
+                         f" and n_out, window_length >= 1; got n_harm={n_harm},"
+                         f" min_shc={min_shc}, n_out={n_out}, window_length={window_length}")
     if mag.dtype != torch.float32:
         raise TypeError(f"shc_band wants float32, got {mag.dtype}")
     mag = mag.contiguous()
@@ -256,10 +269,18 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     if err != 0:
         raise RuntimeError(f"satpu_shc_band launch failed: CUDA error {err}")
     shc_band.launches += 1
+    shc_band.instantiation = _shc_instantiation(n_harm, window_length)
     return out
 
 
+SHC_MAX_HARMONICS = 6  # kMaxH of csrc/shc.cu
 shc_band.launches = 0
+shc_band.instantiation = None
+
+
+@functools.lru_cache(maxsize=None)
+def _shc_instantiation(n_harm: int, window_length: int) -> str:
+    return "fixed" if _shc_lib().satpu_shc_fixed(n_harm, window_length) else "generic"
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,6 +291,10 @@ def _shc_lib():
     lib.satpu_shc_band.restype = ctypes.c_int
     lib.satpu_shc_band.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
+    lib.satpu_shc_fixed.restype = ctypes.c_int
+    lib.satpu_shc_fixed.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.satpu_shc_layout.restype = ctypes.c_int
+    lib.satpu_shc_layout.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
