@@ -35,7 +35,20 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 9. train-cpu: one tiny train step on the card against the port's CPU path;
 10. train-throughput: full-width train steps at B=16 and B=64 x 3 s, then a
     profile of as many steps: the step's phases (the trainer's profiler
-    ranges), the busy share, and the device items of a B=16 step.
+    ranges), the busy share, and the device items of a B=16 step;
+11. eval: the ``eval_anon`` CLI on the card over the slice phase's
+    anonymized dir (original-enrol / anonymized-trial: 8 target and 16
+    non-target trials), with a full-width ``tdnnf`` ASR model (1024 wide,
+    3280 pdfs, f32) decoding a word-bigram graph built over the den graph's
+    3280-pdf biphone tree, and a full-width ECAPA x-vector model (chunked
+    x-vectors, the ArcMargin centres as AS-norm cohort); checks the
+    results, that the native decoder decoded every utterance, and the card
+    against the port's CPU path at f32 (the same hyps, loglikes rel <= 1e-3,
+    x-vector cosine >= 0.9999, the same trial ranking);
+12. eval-throughput: x-vector extraction (chunked, B=64 windows of 3 s) and
+    loglikes (B=32 x 10 s) in audio-seconds per second with their busy
+    shares, and the host decoder's milliseconds per audio-second at beam
+    16 / lattice beam 8, one thread and a thread pool.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -82,6 +95,11 @@ TRAIN_NET = {"output_dim": NUM_PDFS, "bottleneck": "vq", "codebook_size": 48,
 TINY_NET = {"output_dim": 40, "hidden_dim": 32, "bottleneck_dim": 16,
             "prefinal_bottleneck_dim": 16, "bottleneck": "vq", "codebook_size": 8,
             "natural_gradient": True, "p_dropout": 0.0}
+# evaluation: egs/asr/librispeech/configs/tdnnf_asr_eval.ini (model = tdnnf)
+EVAL_ASR = {"output_dim": NUM_PDFS, "bottleneck": "none"}
+# the decoding graph's vocabulary: words are 3-6 phone walks of the den
+# graph's bigram; the word bigram is estimated from random sentences
+EVAL_WORDS, EVAL_SENTENCES = 60, 200
 
 
 def check(ok: bool, what: str) -> None:
@@ -927,6 +945,317 @@ def phase_train_throughput(np, torch, fx, card):
         del trainer, model, batch, prof
 
 
+def eval_graph(np):
+    """The decoding graph at the network's 3280 pdfs: the den graph's
+    biphone tree (164 phones x 9 successors), words that are 3-6 phone walks
+    of its bigram, and a word bigram from random sentences. Returns (graph,
+    word table, sentence sampler)."""
+    from satpu_torch.chain.prep import (Lexicon, estimate_word_bigram, make_decode_graph,
+                                        random_bigram_den, random_phone_walk)
+
+    t0 = time.perf_counter()
+    _, tree, trans = random_bigram_den(DEN_PHONES, DEN_SUCC, seed=0)
+    check(tree.num_pdfs == NUM_PDFS, f"decoding tree has {tree.num_pdfs} pdfs")
+    rng = np.random.default_rng(0)
+    lex = Lexicon({f"w{i:03d}": [[tree.phones[p - 1] for p in
+                                  random_phone_walk(trans, int(rng.integers(3, 7)), rng)]]
+                   for i in range(EVAL_WORDS)})
+    names = sorted(lex.entries)
+
+    def sentence(r):
+        return [names[j] for j in r.integers(0, len(names), int(r.integers(3, 9)))]
+
+    vocab, _, w_trans, w_final = estimate_word_bigram([sentence(rng)
+                                                       for _ in range(EVAL_SENTENCES)])
+    phone_id = {p: i + 1 for i, p in enumerate(tree.phones)}
+    graph, table = make_decode_graph(tree, lex, phone_id, vocab, w_trans, w_final)
+    print(f"[eval] decoding graph: {len(vocab)} words, {tree.num_pdfs} pdfs, {graph.num_states}"
+          f" states, {graph.num_arcs} arcs, built in {time.perf_counter() - t0:.1f} s")
+    return graph, table, sentence
+
+
+def calibrate_norms(np, torch, model):
+    """Batch-norm statistics of speech for a randomly initialized model: one
+    forward pass over 8 synthetic voiced utterances of 3 s (not the eval
+    data) in which every batch norm first takes the mean and biased
+    variance of its own input over all but the channel axis, so each sees
+    its upstream norms already set, as a trained model's would be. With
+    the init's 0 / 1 the random ECAPA maps every utterance to nearly the
+    same x-vector, and the trial scores differ by little more than
+    rounding."""
+    def take(module, inputs):
+        x = inputs[0]
+        dims = [0] + list(range(2, x.dim()))
+        module.running_mean.copy_(x.mean(dims))
+        module.running_var.copy_(x.var(dims, correction=0))
+
+    hooks = [m.register_forward_pre_hook(take) for m in model.modules()
+             if isinstance(getattr(m, "running_var", None), torch.Tensor)]
+    wavs = np.stack([voiced_utterance(np, 3.0, 90.0 + 20 * k, seed=200 + k)[0] for k in range(8)])
+    with torch.no_grad():
+        model(torch.from_numpy(wavs))
+    for h in hooks:
+        h.remove()
+    return len(hooks)
+
+
+def rank_scores(np, xv_enroll, spk_of, xv_trial, trials):
+    """asv_test's cosine scores of (speaker, utt, target) trials from
+    per-utterance x-vectors: enrolment speaker means, normalized."""
+    from satpu_torch.sidekit import scoring
+
+    means = {}
+    for s in sorted(set(spk_of)):
+        m = xv_enroll[[i for i, x in enumerate(spk_of) if x == s]].mean(axis=0)
+        means[s] = m / np.maximum(np.linalg.norm(m), 1e-12)
+    return scoring.cosine_scoring(np.stack([means[s] for s, _, _ in trials]),
+                                  np.stack([xv_trial[u] for _, u, _ in trials]))
+
+
+def phase_eval(np, torch, card):
+    """The eval_anon CLI on the card over the slice phase's anonymized dir,
+    then the same run on the port's CPU path. Returns what eval-throughput
+    reuses: the graph, the two checkpoints."""
+    from satpu_torch import infer_helper, native
+    from satpu_torch.bin import eval_anon
+    from satpu_torch.bin.pipeline import DEFAULT_BUCKETS, bucket_for
+    from satpu_torch.sidekit.trainer import extract_xvectors
+    from satpu_torch.utils import kaldi_data
+    from satpu_torch.utils.scp_io import read_ark
+
+    graph, table, sentence = eval_graph(np)
+    ev = os.path.join(WORK, "eval")
+    os.makedirs(ev)
+    paths = {k: os.path.join(ev, f) for k, f in (
+        ("graph", "HCLG.fst"), ("words", "words.txt"), ("asr", "asr_eval.pt"),
+        ("asv", "asv_xvector.pt"), ("trials", "trials"))}
+    graph.write(paths["graph"])
+    with open(paths["words"], "w") as f:
+        f.write("<eps> 0\n" + "".join(f"{w} {i}\n" for i, w in sorted(table.items())))
+    t0 = time.perf_counter()
+    for key, model_id, params in (("asr", "asrbn_tdnnf", EVAL_ASR), ("asv", "asv_xvector", {})):
+        model = infer_helper.build_model(model_id, device="cpu", seed=0, **params)
+        norms = calibrate_norms(np, torch, model)
+        infer_helper.save_model(paths[key], model_id, params, model.state_dict())
+        n = sum(v.numel() for v in model.state_dict().values())
+        print(f"[eval] {model_id} {params or 'defaults'}: {n / 1e6:.2f} M weights from seed 0,"
+              f" {norms} batch norms calibrated")
+    c = model.cfg
+    check((c.arch, c.n_mels, c.channels, c.embedding_size, c.num_speakers)
+          == ("ecapa", 80, 512, 192, 1211), "ECAPA x-vector widths")
+    del model
+    print(f"[eval] checkpoints built and saved in {time.perf_counter() - t0:.1f} s")
+
+    # VoicePrivacy's original-enrol / anonymized-trial setting
+    data, anon = os.path.join(WORK, "data"), os.path.join(WORK, "data_anon")
+    utt2spk = kaldi_data.read_keyed_text(os.path.join(data, "utt2spk"))
+    anon_utts = sorted(kaldi_data.read_wav_scp(os.path.join(anon, "wav.scp")))
+    check(len(anon_utts) == len(SLICE_UTTS), "the anonymized dir holds every utterance")
+    rng = np.random.default_rng(1)
+    text = {u: " ".join(sentence(rng)) for u in anon_utts}
+    kaldi_data.write_keyed_text(text, os.path.join(anon, "text"))
+    n_words = sum(len(t.split()) for t in text.values())
+    speakers = sorted(set(utt2spk.values()))
+    trials = [(s, u, utt2spk[u] == s) for u in anon_utts for s in speakers]
+    with open(paths["trials"], "w") as f:
+        f.writelines(f"{s} {u} {'target' if t else 'nontarget'}\n" for s, u, t in trials)
+
+    def run(device):
+        res = os.path.join(ev, f"results_{device}")
+        native.decode_lattice.calls = 0
+        t0 = time.perf_counter()
+        rc = eval_anon.main([
+            "--device", device, "--data", anon, "--asr-checkpoint", paths["asr"],
+            "--decode-graph", paths["graph"], "--words-txt", paths["words"],
+            "--write-ctm", "true", "--dump-loglikes", os.path.join(res, "loglikes.ark"),
+            "--asv-checkpoint", paths["asv"], "--enroll-dir", data,
+            "--trials", paths["trials"], "--xvector-mode", "chunked", "--results", res])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"eval_anon on {device} exited {rc}")
+        with open(os.path.join(res, "results.json")) as f:
+            out = json.load(f)
+        ctm = {}
+        with open(os.path.join(res, "hyp.ctm")) as f:
+            for line in f:
+                ctm.setdefault(line.split()[0], []).append(line.split()[4])
+        return out, wall, native.decode_lattice.calls, ctm, dict(read_ark(
+            os.path.join(res, "loglikes.ark")))
+
+    check(native.available(), "the native decoder does not build")
+    out, wall, decodes, ctm, lls = run("cuda")
+    asr, asv = out["asr"], out["asv"]
+    print(f"[eval] eval_anon CLI on cuda: {len(anon_utts)} utterances, {len(trials)} trials"
+          f" ({sum(t for *_, t in trials)} target) in {wall:.2f} s (first call, cold);"
+          f" {decodes} native lattice decodes [{card}]")
+    print(f"[eval]   asr {json.dumps(asr)}")
+    print(f"[eval]   asv {json.dumps(asv)}")
+    check(decodes == len(anon_utts), f"the native decoder decoded {decodes} utterances")
+    check(asr["words"] == n_words and all(np.isfinite(v) for v in asr.values()),
+          f"asr results {asr}")
+    check(all(np.isfinite(v) for v in asv.values()) and 0 <= asv["eer"] <= 100
+          and "asnorm_eer" in asv, f"asv results {asv}")
+    check(sorted(lls) == anon_utts and all(np.isfinite(x).all() for x in lls.values()),
+          "a loglike matrix is missing or not finite")
+
+    out_cpu, wall_cpu, _, ctm_cpu, lls_cpu = run("cpu")
+    ll_rel = max(float(np.abs(lls[u] - lls_cpu[u]).max() / np.abs(lls_cpu[u]).max())
+                 for u in anon_utts)
+    same_hyps = all(ctm.get(u, []) == ctm_cpu.get(u, []) for u in anon_utts)
+    scp = {d: kaldi_data.read_wav_scp(os.path.join(d, "wav.scp")) for d in (data, anon)}
+    enroll = sorted(utt2spk)
+    wavs = ([kaldi_data.load_wav_from_scp(scp[data][u])[0][0] for u in enroll]
+            + [kaldi_data.load_wav_from_scp(scp[anon][u])[0][0] for u in anon_utts])
+    rms = [float(np.sqrt(np.mean(w.astype(np.float64) ** 2))) for w in wavs[len(enroll):]]
+    # where the loglikes part: the frontend (fbank, CMVN) or the network,
+    # on eval_anon's padded batch
+    batch = np.zeros((len(anon_utts), bucket_for(max(map(len, wavs[len(enroll):])),
+                                                 DEFAULT_BUCKETS)), np.float32)
+    for j, w in enumerate(wavs[len(enroll):]):
+        batch[j, :len(w)] = w
+    lens = torch.tensor([len(w) for w in wavs[len(enroll):]])
+    nets = {d: infer_helper.load_model(paths["asr"], device=d)[0] for d in ("cuda", "cpu")}
+    with torch.inference_mode():
+        feats = {d: m.features(torch.from_numpy(batch).to(d), lens.to(d)).cpu()
+                 for d, m in nets.items()}
+        # the card's network on the CPU's features
+        hook = nets["cuda"].tdnn1.register_forward_pre_hook(
+            lambda mod, inp: (feats["cpu"].transpose(1, 2).cuda(),))
+        net_ll = {"cuda": nets["cuda"](torch.from_numpy(batch).cuda(), lens.cuda())[0].cpu()}
+        hook.remove()
+        net_ll["cpu"] = nets["cpu"](torch.from_numpy(batch), lens)[0]
+    del nets
+    feat_diff = (feats["cuda"] - feats["cpu"]).abs()
+    feat_err = float(feat_diff.max())
+    feat_rel = feat_err / float(feats["cpu"].abs().max())
+    feat_frame = int(feat_diff.amax(dim=(0, 2)).argmax())
+    net_rel = float((net_ll["cuda"] - net_ll["cpu"]).abs().max() / net_ll["cpu"].abs().max())
+    # x-vectors of every enrolment and trial utterance on both devices
+    xv = {}
+    for device in ("cuda", "cpu"):
+        model, _ = infer_helper.load_model(paths["asv"], device=device)
+        xv[device] = extract_xvectors(model, wavs)
+        del model
+    a, b = xv["cuda"], xv["cpu"]
+    cos = float(((a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)).min())
+    scores = {}
+    for device, x in xv.items():
+        scores[device] = rank_scores(np, x[:len(enroll)], [utt2spk[u] for u in enroll],
+                                     dict(zip(anon_utts, x[len(enroll):])), trials)
+    # trials whose x-vectors are bitwise equal on a device tie exactly on it
+    same_rank = bool((np.argsort(scores["cuda"], kind="stable")
+                      == np.argsort(scores["cpu"], kind="stable")).all())
+    distinct = np.unique(scores["cpu"])
+    n_xv = len(np.unique(xv["cpu"][len(enroll):], axis=0))
+    metric_diff = max(abs(asv[k] - out_cpu["asv"][k]) for k in asv)
+    print(f"[eval] the anonymized utterances: rms {min(rms):.6f}-{max(rms):.6f}, {n_xv} distinct"
+          f" x-vectors of {len(anon_utts)}, {len(distinct)} distinct trial scores of"
+          f" {len(trials)}")
+    print(f"[eval] cuda vs cpu (f32, TF32 off; cpu CLI {wall_cpu:.2f} s): hyps equal"
+          f" {same_hyps}; loglikes rel {ll_rel:.3e} (fbank+CMVN features max abs {feat_err:.3e},"
+          f" rel {feat_rel:.3e}, at frame {feat_frame}; the network on the same features rel"
+          f" {net_rel:.3e});"
+          f" x-vector cosine min {cos:.7f} over {len(wavs)} utterances; trial ranking equal"
+          f" {same_rank} (score max abs diff {float(np.abs(scores['cuda'] - scores['cpu']).max()):.3e},"
+          f" smallest gap between distinct scores {float(np.diff(distinct).min()):.3e});"
+          f" ASV metrics max abs diff {metric_diff:.3e}; WER {asr['wer']:.2f} vs"
+          f" {out_cpu['asr']['wer']:.2f}")
+    check(same_hyps, "the card's hyps differ from the CPU path's")
+    check(ll_rel <= 1e-3, "the card's loglikes depart from the CPU path")
+    check(cos >= 0.9999, "the card's x-vectors depart from the CPU path")
+    check(same_rank, "the card ranks the trials differently from the CPU path")
+    return graph, paths
+
+
+def busy_share(torch, fn):
+    """(host-clock ms of one unprofiled call, device ms of one profiled
+    call, kernel launches) of fn; a warm-up call first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    span = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return span, sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+
+
+def phase_eval_throughput(np, torch, graph, paths, card):
+    """Evaluation throughput: x-vector extraction and loglikes on the card,
+    the host decoder on the loglikes of random 10 s utterances."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from satpu_torch import infer_helper, native
+    from satpu_torch.models.asrbn import output_num_frames
+    from satpu_torch.sidekit.trainer import extract_xvectors
+
+    rng = np.random.default_rng(2)
+    asv, _ = infer_helper.load_model(paths["asv"])
+    windows = list((rng.standard_normal((64, 3 * SR)) * 0.1).astype(np.float32))
+    iters = 5
+    extract_xvectors(asv, windows)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        xv = extract_xvectors(asv, windows)
+    wall = (time.perf_counter() - t0) / iters
+    check(xv.shape == (64, 192) and bool(np.isfinite(xv).all()), "x-vector batch")
+    span, dev, launches = busy_share(torch, lambda: extract_xvectors(asv, windows))
+    print(f"[eval-throughput] x-vectors, ECAPA 512, chunked, B=64 windows of 3 s, f32:"
+          f" {64 * 3.0 / wall:.1f} audio-s/s ({wall * 1e3:.1f} ms a batch, host clock);"
+          f" device {dev:.1f} of {span:.1f} ms = {dev / span:.0%} busy, {launches} launches"
+          f" [{card}]")
+    del asv
+
+    asr, _ = infer_helper.load_model(paths["asr"])
+    B, T = 32, 10 * SR
+    wav = torch.from_numpy((rng.standard_normal((B, T)) * 0.1).astype(np.float32)).cuda()
+    lens = torch.full((B,), T, device="cuda")
+    with torch.inference_mode():
+        asr(wav, lens)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ll = asr(wav, lens)[0]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+        span, dev, launches = busy_share(torch, lambda: asr(wav, lens))
+    check(tuple(ll.shape) == (B, output_num_frames(T), NUM_PDFS)
+          and bool(torch.isfinite(ll).all()), "loglike batch")
+    print(f"[eval-throughput] loglikes, tdnnf 1024, 3280 pdfs, B=32 x 10 s, f32:"
+          f" {B * 10.0 / wall:.1f} audio-s/s ({wall * 1e3:.1f} ms a batch, host clock);"
+          f" device {dev:.1f} of {span:.1f} ms = {dev / span:.0%} busy, {launches} launches"
+          f" [{card}]")
+    lls = list(ll.cpu().numpy())
+    del asr, wav, ll
+
+    ng = native.NativeGraph(graph)
+
+    def decode(x):
+        return native.decode_lattice(ng, x, beam=16.0, lattice_beam=8.0, max_active=7000)
+
+    n1 = 8
+    t0 = time.perf_counter()
+    arcs = [decode(x).num_arcs for x in lls[:n1]]
+    one = (time.perf_counter() - t0) / (n1 * 10.0)
+    workers = os.cpu_count() or 4
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        lats = list(pool.map(decode, lls))
+    pooled = (time.perf_counter() - t0) / (B * 10.0)
+    check(all(lat.num_arcs > 0 for lat in lats), "an empty lattice")
+    print(f"[eval-throughput] host decoder, beam 16 / lattice beam 8, {graph.num_states}-state"
+          f" graph: {one * 1e3:.3f} ms per audio-s on one thread ({n1} utterances of 10 s,"
+          f" lattices of {min(arcs)}-{max(arcs)} arcs), {pooled * 1e3:.3f} ms per audio-s with a"
+          f" pool of {workers} threads ({B} utterances) [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -961,6 +1290,9 @@ def main() -> int:
     launches.update(train_launches)
     phase_train_cpu(np, torch)
     phase_train_throughput(np, torch, fx, card)
+    # evaluation: eval_anon over the slice phase's output (no kernel of its own)
+    graph, paths = phase_eval(np, torch, card)
+    phase_eval_throughput(np, torch, graph, paths, card)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

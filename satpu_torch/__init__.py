@@ -1,5 +1,6 @@
-"""satpu_torch — the PyTorch/CUDA port of satpu: anonymization serving and
-LF-MMI chain training of its bottleneck extractor.
+"""satpu_torch — the PyTorch/CUDA port of satpu: anonymization serving,
+LF-MMI chain training of its bottleneck extractor, and privacy/utility
+evaluation.
 
 A package beside ``satpu`` (the JAX reference, which it never imports) that
 runs the same models with PyTorch on an NVIDIA GPU. Each module mirrors its
@@ -12,16 +13,26 @@ one against it on the same weights and inputs.
 - ``satpu_torch.models`` TDNN-F ASR-BN extractor (inference and training),
                          HiFi-GAN generator, the anonymizer, and the weight
                          bridge from satpu variables.
-- ``satpu_torch.chain``  FST and den-graph code, the chain objective (its den
-                         forward-backward is the CUDA kernel pair
-                         ``csrc/den_fb.cu``), NG-SGD, egs and the trainer.
+- ``satpu_torch.chain``  FST, den-graph and decoding-graph code, the chain
+                         objective (its den forward-backward is the CUDA
+                         kernel pair ``csrc/den_fb.cu``), NG-SGD, egs, the
+                         trainer, lattices, N-best and ARPA rescoring.
+- ``satpu_torch.native`` the C++ lattice decoder (satpu's ``decoder.cc``,
+                         built with g++ at first use), bound with ctypes.
+- ``satpu_torch.sidekit`` x-vector models (ECAPA-TDNN, half-ResNet), their
+                         frontends, x-vector extraction and trial scoring.
 - ``satpu_torch.utils``  kaldi data dirs, INI/dataclass options,
-                         checkpoints, metrics log, the CUDA build helper.
-- ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, and the
-                         ``train_asr`` CLI.
+                         checkpoints, metrics log, the CUDA build helper,
+                         WER and the kaldi ark writer.
+- ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, the
+                         ``train_asr`` CLI, and the ``eval_anon`` CLI.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
-when CUDA is absent rather than falling back.
+when CUDA is absent rather than falling back. Evaluation on the card:
+``python -m satpu_torch.bin.eval_anon --data D --asr-checkpoint A
+--decode-graph G --words-txt W --asv-checkpoint V --enroll-dir E --trials
+T``; add ``--device cpu`` to run it on the CPU. The networks run in f32
+with TF32 off; decoding and scoring run on the host.
 """
 from __future__ import annotations
 

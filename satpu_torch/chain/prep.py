@@ -13,22 +13,144 @@ that build a denominator graph and matching numerator supervisions.
 - ``random_bigram_den``: a pruned random phone bigram through
   ``make_den_fst``, the den graph of a given size for runs without a
   corpus (164 phones x 9 successors: 3280 pdfs, 1641 states), and
-  ``write_random_chain_corpus``, a synthetic training set over it.
+  ``write_random_chain_corpus``, a synthetic training set over it;
+- ``Lexicon``, ``text_to_phones``, ``estimate_phone_bigram``,
+  ``estimate_word_bigram`` and ``make_decode_graph``: the word-bigram
+  decoding graph (HCLG equivalent) that evaluation decodes with.
 
-Lexicon, phone-LM estimation and data preparation are not ported yet.
+Data preparation (speed perturbation, ``prepare_chain_data``) and
+``phone_lm_fst`` are not ported yet.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import random
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..utils import kaldi_data
-from .fst import Arc, Fst, fst_connect
+from .fst import Arc, Fst, fst_connect, fst_rmepsilon
+
+SIL = "SIL"
+
+
+# ---------------------------------------------------------------------------
+# Lexicon / phones
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Lexicon:
+    """word -> phone sequences; phone ids are 1-based (0 reserved)."""
+
+    entries: Dict[str, List[List[str]]]
+    sil: str = SIL
+
+    @classmethod
+    def load(cls, path: str) -> "Lexicon":
+        entries: Dict[str, List[List[str]]] = {}
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2:
+                    entries.setdefault(parts[0], []).append(parts[1:])
+        return cls(entries)
+
+    @classmethod
+    def grapheme(cls, words) -> "Lexicon":
+        """Character lexicon for lexicon-free setups (each letter a phone)."""
+        entries = {w: [list(w)] for w in sorted(set(words)) if w}
+        return cls(entries)
+
+    def phones(self) -> List[str]:
+        out = {self.sil}
+        for prons in self.entries.values():
+            for p in prons:
+                out.update(p)
+        return sorted(out)
+
+    def word_phones(self, word: str) -> Optional[List[str]]:
+        prons = self.entries.get(word)
+        return prons[0] if prons else None
+
+    def unk_word(self) -> Optional[str]:
+        """The lexicon's unknown-word entry, if any (kaldi oov.txt role)."""
+        for cand in ("<unk>", "<UNK>", "<SPOKEN_NOISE>"):
+            if cand in self.entries:
+                return cand
+        return None
+
+
+def text_to_phones(words: Sequence[str], lexicon: Lexicon,
+                   between_silprob: float = 0.1,
+                   rng: Optional[random.Random] = None,
+                   edge_sil: bool = True) -> List[str]:
+    """Transcript -> phone sequence with sampled inter-word silence
+    (steps/nnet3/chain/e2e/text_to_phones.py --between-silprob 0.1). OOV
+    words map to the lexicon's unk entry when one exists (kaldi sym2int's
+    --map-oov semantics); otherwise they are dropped with a warning."""
+    rng = rng or random
+    unk = lexicon.unk_word()
+    seq: List[str] = [lexicon.sil] if edge_sil else []
+    for i, w in enumerate(words):
+        pron = lexicon.word_phones(w)
+        if pron is None and unk is not None and w != unk:
+            logging.info("OOV word %r mapped to %s", w, unk)
+            pron = lexicon.word_phones(unk)
+        if pron is None:
+            logging.warning("OOV word %r dropped (no unk entry in lexicon)", w)
+            continue
+        if i > 0 and between_silprob > 0 and rng.random() < between_silprob:
+            seq.append(lexicon.sil)
+        seq.extend(pron)
+    if edge_sil:
+        seq.append(lexicon.sil)
+    return seq
+
+
+# ---------------------------------------------------------------------------
+# Phone LM (epsilon-free interpolated bigram)
+# ---------------------------------------------------------------------------
+
+
+def estimate_phone_bigram(phone_seqs: Sequence[Sequence[int]], num_phones: int,
+                          interp: float = 0.5) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Interpolated (absolute-discount-free, mixture) bigram over 1-based
+    phone ids. Returns (P_init [P+1], P_trans [P+1, P+1], P_final [P+1]) in
+    probability space; index 0 is BOS. Every probability is nonzero, so the
+    resulting FST is epsilon-free — the TPU-friendly stand-in for kaldi's
+    backoff 4-gram (chain-est-phone-lm)."""
+    P = num_phones
+    uni = np.ones(P + 1)  # add-1 smoothing over phones (index 1..P); 0 unused
+    uni[0] = 0.0
+    big = np.zeros((P + 1, P + 1))
+    fin = np.zeros(P + 1)
+    for seq in phone_seqs:
+        prev = 0  # BOS
+        for p in seq:
+            uni[p] += 1
+            big[prev, p] += 1
+            prev = p
+        fin[prev] += 1
+    uni_p = uni / uni.sum()
+    counts = big.sum(axis=1) + fin
+    counts = np.maximum(counts, 1e-10)
+    big_p = big / counts[:, None]
+    fin_p = fin / counts
+    # interpolate bigram with unigram; keep a floor on the final prob
+    trans = interp * big_p + (1.0 - interp) * uni_p[None, :]
+    final = interp * fin_p + (1.0 - interp) * 0.05
+    # renormalize rows of [trans | final]
+    z = trans.sum(axis=1) + final
+    trans /= z[:, None]
+    final /= z
+    init = trans[0].copy()
+    return init, trans, final
 
 
 @dataclass
@@ -282,3 +404,96 @@ def write_random_chain_corpus(out_dir: str, n_utts: int, seconds: float, n_phone
         out["valid"], out["valid_fst_scp"] = write_set("valid", "valid_", n_valid)
     den.write(out["den_fst"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Decoding graph (HCLG equivalent, kaldi utils/mkgraph.sh without kaldi)
+# ---------------------------------------------------------------------------
+
+
+def estimate_word_bigram(texts: Sequence[Sequence[str]], interp: float = 0.5):
+    """Interpolated word bigram: returns (words, init, trans, final) like
+    estimate_phone_bigram but over a word vocabulary."""
+    vocab = sorted({w for t in texts for w in t})
+    word_id = {w: i + 1 for i, w in enumerate(vocab)}
+    seqs = [[word_id[w] for w in t] for t in texts]
+    init, trans, final = estimate_phone_bigram(seqs, len(vocab), interp=interp)
+    return vocab, init, trans, final
+
+
+def make_decode_graph(tree: BiphoneTree, lexicon: Lexicon,
+                      phone_id: Dict[str, int], vocab: List[str],
+                      trans: np.ndarray, final: np.ndarray,
+                      optional_sil: bool = True,
+                      prune_floor: float = 1e-4) -> Tuple[Fst, Dict[int, str]]:
+    """Word-bigram decoding graph over pdf+1 input labels with word output
+    labels — the HCLG the reference builds with kaldi mkgraph
+    (prepare_data.sh stage 6). States are (lm_state, word, phone_pos,
+    left_phone) expanded through the chain topology; optional silence may be
+    taken between words. Suitable for small/medium vocabularies (the python
+    expansion is explicit, not determinized-shared).
+
+    Returns (graph, word_table {id: word}).
+    """
+    V = len(vocab)
+    word_phones = {i + 1: [phone_id[p] for p in (lexicon.word_phones(vocab[i]) or [])]
+                   for i in range(V)}
+    word_phones = {w: ph for w, ph in word_phones.items() if ph}
+    sil = phone_id.get(lexicon.sil)
+    fst = Fst()
+    # boundary state per (lm_state q, left_phone l): between words
+    bstate: Dict[Tuple[int, int], int] = {}
+
+    def get_b(q: int, l: int) -> int:
+        key = (q, l)
+        if key not in bstate:
+            s = fst.add_state()
+            bstate[key] = s
+            if q > 0 and final[q] > prune_floor:
+                fst.set_final(s, -math.log(final[q]))
+        return bstate[key]
+
+    fst.start = get_b(0, 0)
+    todo = [(0, 0)]
+    seen = {(0, 0)}
+    while todo:
+        q, l = todo.pop()
+        src = get_b(q, l)
+        # optional silence before the next word (self-transition on boundary)
+        if optional_sil and sil is not None and l != sil:
+            mid = fst.add_state()
+            fp, sp = tree.forward_pdf(l, sil) + 1, tree.selfloop_pdf(l, sil) + 1
+            fst.add_arc(src, Arc(fp, 0, 0.0, mid))
+            fst.add_arc(mid, Arc(sp, 0, 0.0, mid))
+            key = (q, sil)
+            dst = get_b(q, sil)
+            fst.add_arc(mid, Arc(0, 0, 0.0, dst))
+            if key not in seen:
+                seen.add(key)
+                todo.append(key)
+        for w, phones in word_phones.items():
+            p_lm = trans[q, w]
+            if p_lm <= prune_floor:
+                continue
+            cost = -math.log(p_lm)
+            cur, left = src, l
+            for pos, ph in enumerate(phones):
+                mid = fst.add_state()
+                fp, sp = tree.forward_pdf(left, ph) + 1, tree.selfloop_pdf(left, ph) + 1
+                # word output + LM weight on the first arc of the word
+                fst.add_arc(cur, Arc(fp, w if pos == 0 else 0,
+                                     cost if pos == 0 else 0.0, mid))
+                fst.add_arc(mid, Arc(sp, 0, 0.0, mid))
+                if pos + 1 < len(phones):
+                    nxt = fst.add_state()
+                    fst.add_arc(mid, Arc(0, 0, 0.0, nxt))
+                    cur, left = nxt, ph
+                else:
+                    key = (w, ph)
+                    dst = get_b(w, ph)
+                    fst.add_arc(mid, Arc(0, 0, 0.0, dst))
+                    if key not in seen:
+                        seen.add(key)
+                        todo.append(key)
+    graph = fst_connect(fst_rmepsilon(fst))
+    return graph, {i + 1: w for i, w in enumerate(vocab)}

@@ -49,6 +49,12 @@ def _register_builtins():
         return AnonymizationNet(AnonymizerConfig(asrbn=TDNNFNetConfig(**asrbn_kwargs),
                                                  **_tuplify(kwargs)))
 
+    @register_model("asv_xvector")
+    def _build_asv(**kwargs):
+        from .sidekit.xvector import XVectorConfig, build_xvector
+
+        return build_xvector(XVectorConfig(**kwargs))
+
 
 def serving_option_args(compute_dtype: str = "bfloat16") -> Dict[str, Any]:
     """Build-param deltas every inference entry point applies on top of a

@@ -18,6 +18,12 @@ BN layer ``tdnnf_bn`` -> ``tdnnfs.{n}``, ``tdnnf_after{k}`` ->
 ``ng_states_from_satpu`` carries a TDNNFNet's ``ng_state`` collection (the
 natural-gradient preconditioners, which the port keeps in its trainer, not
 in the state_dict) across under the same module paths.
+
+``from_satpu_xvector`` does the same for an x-vector model
+(``EcapaXVector`` / ``ResNetXVector``): flax scopes ``<name>_<i>``
+(``block_0``, ``convs_3``, ``bns_3``, ``fc_0``, ``attention_4``,
+``shortcut_1``) become ``<name>.<i>``, and every batch norm's {mean, var}
+becomes running_mean / running_var.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 _LIST_SCOPE = re.compile(r"^(ups|resblocks|convs1|convs2|convs)_(\d+)$")
+_XVECTOR_SCOPE = re.compile(r"^(block|convs|bns|fc|attention|shortcut)_(\d+)$")
 _MID_LAYER = re.compile(r"^tdnnf(\d+)$")
 _AFTER_LAYER = re.compile(r"^tdnnf_after(\d+)$")
 _BN_STAT = {"mean": "running_mean", "var": "running_var"}
@@ -93,6 +100,19 @@ def from_satpu_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                  if kind == "tdnnf" and (m := _MID_LAYER.match(path[0]))], default=0)
     return {prefix + (_tdnnf_key(path, n_mid) if kind == "tdnnf" else _hifigan_key(path)):
             _tensor(path, leaf) for prefix, kind, path, leaf in entries}
+
+
+def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """satpu x-vector variables {params, batch_stats} -> torch state_dict."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll) or {}):
+            *scopes, name = path
+            if coll == "batch_stats":
+                name = _BN_STAT[name]
+            key = ".".join([_XVECTOR_SCOPE.sub(r"\1.\2", p) for p in scopes] + [name])
+            out[key] = _tensor(path, leaf)
+    return out
 
 
 def ng_states_from_satpu(ng_state: Mapping) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:

@@ -1,0 +1,132 @@
+"""ASV evaluation (port of the evaluation half of ``satpu.sidekit.trainer``;
+reference satools/satools/sidekit/objf.py:132-369).
+
+- ``extract_xvectors``: per-utterance x-vectors on the model's device, full
+  utterances one at a time or fixed windows in batches;
+- ``validation_eer``: cosine score matrix with target/non-target masks;
+- ``asv_test``: enrollment speaker means, cosine scoring, EER with its
+  bootstrap CI, ROCCH-EER, linkability, Cllr / min-Cllr, and AS-norm when a
+  cohort is given.
+
+The train step and ``TrainingMonitor`` come with ASV training (ROADMAP
+item 14).
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import scoring
+
+
+def extract_xvectors(model, wavs: List[np.ndarray], mode: str = "chunked",
+                     window: int = 48000, batch_size: int = 64) -> np.ndarray:
+    """Per-utterance x-vectors [N, D] on the host (float32 in "full" mode,
+    float64 chunk means in "chunked" mode, as satpu's).
+
+    mode="full" is the reference's batch-of-1 full-utterance pass
+    (objf.py:228-258). mode="chunked" embeds ``window``-sample chunks
+    (short utterances wrap-padded with ``np.resize``; a tail of at least
+    half a window kept as the utterance's last ``window`` samples) in
+    batches of ``batch_size`` and averages each utterance's chunk
+    embeddings. The last batch is not padded: a row of padding never
+    reaches a mean."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        if mode == "full":
+            out = [model(torch.from_numpy(np.asarray(w, np.float32).reshape(1, -1))
+                         .to(device))[1] for w in wavs]
+            return torch.cat(out).cpu().numpy()
+        if mode != "chunked":
+            raise ValueError(f"unknown x-vector mode {mode!r}")
+        chunks, owners = [], []
+        for i, w in enumerate(wavs):
+            x = np.asarray(w, np.float32).reshape(-1)
+            if len(x) <= window:
+                chunks.append(np.resize(x, window))  # wrap-pad short utterances
+                owners.append(i)
+            else:
+                for s in range(0, len(x) - window + 1, window):
+                    chunks.append(x[s:s + window])
+                    owners.append(i)
+                if len(x) % window >= window // 2:  # keep a meaningful tail
+                    chunks.append(x[-window:])
+                    owners.append(i)
+        embs = [model(torch.from_numpy(np.stack(chunks[s:s + batch_size])).to(device))[1]
+                for s in range(0, len(chunks), batch_size)]
+        embs = torch.cat(embs).cpu().numpy()
+    owners = np.asarray(owners)
+    out = np.zeros((len(wavs), embs.shape[1]), np.float32)
+    counts = np.zeros(len(wavs))
+    np.add.at(out, owners, embs)
+    np.add.at(counts, owners, 1.0)
+    return out / np.maximum(counts[:, None], 1.0)
+
+
+def validation_eer(embeddings: np.ndarray, labels: np.ndarray) -> float:
+    """Cosine score matrix + target/non-target masks (objf.py:132-186)."""
+    e = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
+    scores = e @ e.T
+    labels = np.asarray(labels)
+    same = labels[:, None] == labels[None, :]
+    iu = np.triu_indices(len(labels), k=1)
+    tar = scores[iu][same[iu]]
+    non = scores[iu][~same[iu]]
+    return scoring.eer_point(tar, non)
+
+
+def asv_test(model, enroll: Dict[str, List[np.ndarray]],
+             trials: List[Tuple[str, str, bool]],
+             trial_wavs: Dict[str, np.ndarray],
+             cohort_xv: Optional[np.ndarray] = None,
+             metric_path: Optional[str] = None,
+             xvector_mode: str = "chunked",
+             ece_plot_path: Optional[str] = None) -> Dict[str, float]:
+    """Full trial evaluation: enroll spk-means, cosine scoring, EER/CI,
+    linkability, min-Cllr (+ AS-norm variants when a cohort is given).
+
+    enroll: {spk: [wav, ...]}; trials: [(spk, utt, is_target)];
+    trial_wavs: {utt: wav}.
+    """
+    spk_xv = {}
+    for spk, wavs in enroll.items():
+        xv = extract_xvectors(model, wavs, mode=xvector_mode)
+        mean = xv.mean(axis=0)
+        spk_xv[spk] = mean / np.maximum(np.linalg.norm(mean), 1e-12)
+    utts = list(trial_wavs.keys())
+    utt_xv_arr = extract_xvectors(model, [trial_wavs[u] for u in utts], mode=xvector_mode)
+    utt_xv = {u: v for u, v in zip(utts, utt_xv_arr)}
+
+    e1 = np.stack([spk_xv[s] for s, _, _ in trials])
+    e2 = np.stack([utt_xv[u] for _, u, _ in trials])
+    is_tar = np.asarray([t for _, _, t in trials], bool)
+    scores_all = scoring.cosine_scoring(e1, e2)
+    tar, non = scores_all[is_tar], scores_all[~is_tar]
+
+    eer, lo, hi = scoring.eer_ci_bootstrap(tar, non)
+    dsys = scoring.linkability(tar, non)[0]
+    cllr_min, rocch_eer = scoring.min_cllr(tar, non, compute_eer=True)
+    cllr_act = scoring.cllr(tar, non)
+    metrics = {
+        "eer": eer * 100, "eer_ci_lower": lo * 100, "eer_ci_upper": hi * 100,
+        "rocch_eer": rocch_eer * 100, "linkability": float(dsys),
+        "cllr": float(cllr_act), "min_cllr": float(cllr_min),
+    }
+    if cohort_xv is not None:
+        sn = scoring.asnorm(scores_all, e1, e2, cohort_xv)
+        tar_n, non_n = sn[is_tar], sn[~is_tar]
+        metrics["asnorm_eer"] = scoring.eer_point(tar_n, non_n) * 100
+        metrics["asnorm_linkability"] = float(scoring.linkability(tar_n, non_n)[0])
+        metrics["asnorm_min_cllr"] = float(scoring.min_cllr(tar_n, non_n))
+    if ece_plot_path:
+        # the reference plots the PAV-calibrated LLRs (metric.py:815-847)
+        tar_opt, non_opt = scoring.optimal_llr(tar, non)
+        metrics["dece"] = float(scoring.dece(tar_opt, non_opt))
+        metrics["ece_plot"] = scoring.ece_plot(tar_opt, non_opt, ece_plot_path)
+    if metric_path:
+        with open(metric_path, "w") as f:
+            json.dump(metrics, f, indent=2)
+    return metrics

@@ -1,0 +1,107 @@
+"""X-vector speaker-embedding models (port of ``satpu.sidekit.xvector``).
+
+- ``EcapaXVector``: mel frontend -> PreEcapaTDNN -> AttentiveStatsPool ->
+  192-d embedding -> ArcMargin(s=30, m=0.2) (tuning/ecapa_tdnn.py:22-88).
+- ``ResNetXVector``: PreHalfResNet34 -> AttentivePooling(global context) ->
+  256-d embedding -> ArcMargin (tuning/resnet.py:34-76).
+
+``forward(wav, target=None)`` returns ((loss, logits), x_vector) like the
+reference; inference only (train-time SpecAugment and the training heads
+are ROADMAP item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from .archi import PreEcapaTDNN, PreHalfResNet34
+from .loss import ArcMarginProduct, normalize
+from .nn import BatchNorm, Linear
+from .pooling import AttentivePooling, AttentiveStatsPool
+from .preprocessor import mel_spec_frontend, mfcc_frontend
+
+
+@dataclasses.dataclass(frozen=True)
+class XVectorConfig:
+    """Same fields and defaults as satpu's."""
+
+    num_speakers: int = 1211
+    n_mels: int = 80
+    arch: str = "ecapa"  # "ecapa" | "resnet"
+    channels: int = 512
+    embedding_size: int = 192  # 256 for resnet
+    arc_s: float = 30.0
+    arc_m: float = 0.2
+    spec_augment: bool = True
+    # "melspec" | "mfcc" ("wavlm" is not ported)
+    frontend: str = "melspec"
+    wavlm: object = None
+
+
+class _XVector(nn.Module):
+    def __init__(self, cfg: XVectorConfig):
+        super().__init__()
+        if cfg.frontend == "wavlm":
+            raise NotImplementedError(
+                "the WavLM frontend is not ported to satpu_torch yet: it needs "
+                "models/wavlm.py and models/wav2vec2.py (ROADMAP item 12)")
+        if cfg.frontend not in ("melspec", "mfcc"):
+            raise ValueError(f"unknown frontend {cfg.frontend!r}")
+        self.cfg = cfg
+
+    def features(self, wav: torch.Tensor) -> torch.Tensor:
+        """[B, T] audio -> [B, n_mels, frames]."""
+        if self.cfg.frontend == "mfcc":
+            return mfcc_frontend(wav, n_mfcc=self.cfg.n_mels)
+        return mel_spec_frontend(wav, n_mels=self.cfg.n_mels)
+
+    def embed(self, wav: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, wav: torch.Tensor, target=None, arc_m=None):
+        x = self.embed(wav)
+        loss, logits = self.after_speaker_embedding(x, target=target, m=arc_m)
+        return (loss, logits), normalize(x, dim=1)
+
+
+class EcapaXVector(_XVector):
+    def __init__(self, cfg: XVectorConfig):
+        super().__init__(cfg)
+        c = cfg.channels
+        self.sequence_network = PreEcapaTDNN(cfg.n_mels, c)
+        self.stat_pooling = AttentiveStatsPool(c * 3, 128)
+        self.before_speaker_embedding_lin = Linear(c * 3 * 2, cfg.embedding_size, bias=False)
+        self.before_speaker_embedding_bn2 = BatchNorm(cfg.embedding_size)
+        self.after_speaker_embedding = ArcMarginProduct(cfg.embedding_size, cfg.num_speakers,
+                                                        s=cfg.arc_s, m=cfg.arc_m)
+
+    def embed(self, wav: torch.Tensor) -> torch.Tensor:
+        x = self.stat_pooling(self.sequence_network(self.features(wav)))
+        return self.before_speaker_embedding_bn2(self.before_speaker_embedding_lin(x))
+
+
+class ResNetXVector(_XVector):
+    def __init__(self, cfg: XVectorConfig):
+        super().__init__(cfg)
+        freqs = cfg.n_mels // 8
+        self.sequence_network = PreHalfResNet34()
+        self.stat_pooling = AttentivePooling(256, freqs, global_context=True)
+        self.before_speaker_embedding_lin_be = Linear(256 * freqs * 2, cfg.embedding_size,
+                                                      bias=False)
+        self.before_speaker_embedding_bn_be = BatchNorm(cfg.embedding_size)
+        self.after_speaker_embedding = ArcMarginProduct(cfg.embedding_size, cfg.num_speakers,
+                                                        s=cfg.arc_s, m=cfg.arc_m)
+
+    def embed(self, wav: torch.Tensor) -> torch.Tensor:
+        x = self.stat_pooling(self.sequence_network(self.features(wav)))
+        return self.before_speaker_embedding_bn_be(self.before_speaker_embedding_lin_be(x))
+
+
+def build_xvector(cfg: XVectorConfig) -> nn.Module:
+    if cfg.arch == "ecapa":
+        return EcapaXVector(cfg)
+    if cfg.arch == "resnet":
+        return ResNetXVector(dataclasses.replace(cfg, embedding_size=256))
+    raise ValueError(cfg.arch)

@@ -1,5 +1,5 @@
 """satpu_torch stands alone: no file of the port (nor chip_smoke.py)
-imports jax, flax or satpu, importing its CLI loads no jax, and its entry
+imports jax, flax or satpu, importing its CLIs loads no jax, and its entry
 points refuse to run on the CPU unless asked to."""
 import ast
 import os
@@ -39,7 +39,9 @@ def test_no_jax_flax_or_satpu_imports(path):
 def test_cli_import_leaves_jax_unloaded():
     code = ("import sys, satpu_torch.bin.anonymize, satpu_torch.bin.pipeline, "
             "satpu_torch.infer_helper, satpu_torch.bin.train_asr, satpu_torch.chain, "
-            "satpu_torch.chain.trainer, satpu_torch.chain.dataset, satpu_torch.chain.prep\n"
+            "satpu_torch.chain.trainer, satpu_torch.chain.dataset, satpu_torch.chain.prep, "
+            "satpu_torch.bin.eval_anon, satpu_torch.sidekit.xvector, "
+            "satpu_torch.chain.decoder, satpu_torch.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -59,4 +61,19 @@ def test_build_model_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         infer_helper.load_model(os.path.join(ROOT, "no-such.pt"))
     model = infer_helper.build_model("asrbn_tdnnf", device="cpu", **ASRBN_TINY)
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_asv_and_eval_anon_default_to_cuda(monkeypatch, tmp_path):
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import eval_anon
+    from torch_parity import XV_TINY
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        infer_helper.build_model("asv_xvector", **XV_TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_anon.main(["--results", str(tmp_path / "r")])
+    assert not (tmp_path / "r").exists()
+    model = infer_helper.build_model("asv_xvector", device="cpu", **XV_TINY)
     assert next(model.parameters()).device.type == "cpu"

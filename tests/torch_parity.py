@@ -9,6 +9,8 @@ FS = 16000
 ASRBN_TINY = dict(output_dim=16, hidden_dim=32, bottleneck_dim=16,
                   prefinal_bottleneck_dim=16, bottleneck="vq", codebook_size=8)
 ANON_TINY = dict(num_speakers=3, bn_dim=16, upsample_initial_channel=32)
+# tiny ECAPA x-vector (24 mels: the ResNet's pooling needs n_mels % 8 == 0)
+XV_TINY = dict(num_speakers=10, n_mels=24, channels=32, embedding_size=16)
 
 
 def rel_err(out, ref) -> float:
@@ -45,3 +47,64 @@ def jax_variables_numpy(variables):
     if hasattr(variables, "items"):
         return {k: jax_variables_numpy(v) for k, v in variables.items()}
     return np.array(variables)
+
+
+def randomize_bn(variables, seed=0):
+    """numpy variables with non-trivial batch norms, in place: every
+    batch_stats mean ~ N(0, 0.1) and var ~ U(0.5, 2), and every constant
+    params leaf (a fresh norm's ones / zeros) moved by N(0, 0.1). A
+    mis-mapped batch norm then shows."""
+    r = np.random.default_rng(seed)
+
+    def walk(tree, fn):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, fn)
+            else:
+                tree[k] = fn(k, v)
+
+    walk(variables.get("batch_stats", {}), lambda k, v: (
+        r.normal(0.0, 0.1, v.shape) if k == "mean" else r.uniform(0.5, 2.0, v.shape)
+    ).astype(np.float32))
+    walk(variables.get("params", {}), lambda k, v: (
+        v + r.normal(0.0, 0.1, v.shape).astype(np.float32) if np.ptp(v) == 0 else v))
+    return variables
+
+
+def satpu_init(module, *args, seed=0, **kw):
+    """satpu module.init (jitted) -> numpy variables with randomized batch
+    norms."""
+    import jax
+
+    init = jax.jit(lambda key, *a: module.init(key, *a, **kw))
+    return randomize_bn(jax_variables_numpy(init(jax.random.PRNGKey(seed), *args)), seed)
+
+
+def satpu_apply(module, variables, *args, **kw):
+    """satpu module.apply, jitted (one compile instead of op-by-op dispatch)."""
+    import jax
+
+    return jax.jit(lambda v, *a: module.apply(v, *a, **kw))(variables, *args)
+
+
+def bridged(module, variables):
+    """The port's ``module`` in eval mode with satpu's x-vector ``variables``
+    carried across; the bridge must fill every tensor."""
+    from satpu_torch.models.convert import from_satpu_xvector
+
+    sd = from_satpu_xvector(variables)
+    assert set(sd) == set(module.state_dict()), set(sd) ^ set(module.state_dict())
+    module.load_state_dict(sd)
+    return module.eval()
+
+
+def satpu_xvector(seed=0, **kw):
+    """(satpu model, its randomized numpy variables, the port's model with
+    them) for an x-vector config."""
+    from satpu.sidekit.xvector import XVectorConfig as JCfg
+    from satpu.sidekit.xvector import build_xvector as jbuild
+    from satpu_torch.sidekit.xvector import XVectorConfig, build_xvector
+
+    jm = jbuild(JCfg(**kw))
+    v = satpu_init(jm, np.zeros((1, 8000), np.float32), train=False, seed=seed)
+    return jm, v, bridged(build_xvector(XVectorConfig(**kw)), v)
