@@ -48,7 +48,20 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 12. eval-throughput: x-vector extraction (chunked, B=64 windows of 3 s) and
     loglikes (B=32 x 10 s) in audio-seconds per second with their busy
     shares, and the host decoder's milliseconds per audio-second at beam
-    16 / lattice beam 8, one thread and a thread pool.
+    16 / lattice beam 8, one thread and a thread pool;
+13. gan: the ``train_vc`` CLI on the card at full width
+    (egs/vc/libritts/configs/hifigan.ini: generator 512 over the flagship's
+    247 speakers, full MPD and MSD, B=32, segment 16320, f32) for one epoch
+    over 247 synthetic voiced utterances (1.1-1.6 s, one a speaker) with a
+    dev dir of 32, the frozen flagship extractor's F0 through the SHC
+    kernel; checks every step's metrics, that the warm-up launched the
+    kernel, the checkpoint triplet, g_best and the validation error, and
+    that the ``anonymize`` CLI serves the written generator;
+14. gan-cpu: one tiny GAN step on the card against the port's CPU path;
+15. gan-throughput: full-width GAN steps from a fixed batch, B=32 f32 and
+    B=128 bf16 at segment 16320: ms per step, audio-seconds per second,
+    peak memory, then a profile of as many steps: the step's phases (the
+    trainer's profiler ranges), the busy share and the top device items.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -100,6 +113,11 @@ EVAL_ASR = {"output_dim": NUM_PDFS, "bottleneck": "none"}
 # the decoding graph's vocabulary: words are 3-6 phone walks of the den
 # graph's bigram; the word bigram is estimated from random sentences
 EVAL_WORDS, EVAL_SENTENCES = 60, 200
+# GAN training: the reference recipe's config; one utterance for each of the
+# flagship's 247 speakers (8 steps at B=32) and a dev dir of 32 (one
+# validation batch)
+GAN_CONFIG = "egs/vc/libritts/configs/hifigan.ini"
+GAN_SEGMENT, GAN_DEV = 16320, 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -839,30 +857,32 @@ def phase_train_cpu(np, torch):
     check(noise <= 1e-5, "a zero gradient is not zero on the card")
 
 
-def train_split(prof, iters: int):
+def train_split(prof, iters: int, prefix: str = "chain.", phases=None):
     """Per step, from a profile of ``iters`` train steps: each trainer phase's
-    host ms (its ``chain.<phase>`` range on the calling thread) and the
+    host ms (its ``<prefix><phase>`` range on the calling thread) and the
     device ms of the kernels, copies and fills launched inside it. A device
     item belongs to the range whose host window holds its launch call, from
     whatever thread made it (the autograd engine launches the backward's from
-    its own). Items launched outside every range count as ``other``."""
+    its own). Items launched outside every range count as ``other``. The
+    phases are the chain trainer's unless given."""
     import bisect
 
     from torch.autograd import DeviceType
 
-    from satpu_torch.chain.trainer import PHASES
+    if phases is None:
+        from satpu_torch.chain.trainer import PHASES as phases
 
     events = prof.events()
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("chain."):])
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len(prefix):])
                     for e in events if e.device_type == DeviceType.CPU
-                    and e.name.startswith("chain.") and e.name[len("chain."):] in PHASES)
+                    and e.name.startswith(prefix) and e.name[len(prefix):] in phases)
     starts = [r[0] for r in ranges]
     # runtime calls (cudaLaunchKernel, cudaMemcpyAsync, ...) share their
     # device item's correlation id
     launch = {e.id: e.time_range.start for e in events
               if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
-    host = dict.fromkeys(PHASES, 0.0)
-    dev = dict.fromkeys(PHASES + ("other",), 0.0)
+    host = dict.fromkeys(phases, 0.0)
+    dev = dict.fromkeys(tuple(phases) + ("other",), 0.0)
     for t0, t1, name in ranges:
         host[name] += (t1 - t0) / 1e3 / iters
     for e in events:
@@ -1256,6 +1276,268 @@ def phase_eval_throughput(np, torch, graph, paths, card):
           f" pool of {workers} threads ({B} utterances) [{card}]")
 
 
+def gan_batch(np, torch, B: int, device):
+    """A fixed full-width GAN batch of B segments of GAN_SEGMENT samples:
+    the flagship's 256-d bottleneck features, F0 with unvoiced frames, the
+    247-speaker one-hot, and audio; made from a seed."""
+    rng = np.random.default_rng(4)
+    t_bn = GAN_SEGMENT // 320
+    f0 = (rng.uniform(80, 250, (B, t_bn)) * (rng.random((B, t_bn)) > 0.2)).astype(np.float32)
+    batch = {"bn": rng.standard_normal((B, 256, t_bn)).astype(np.float32), "f0": f0,
+             "spk": np.eye(247, dtype=np.float32)[rng.integers(0, 247, B)],
+             "audio": (rng.standard_normal((B, GAN_SEGMENT)) * 0.1).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def gan_shc_check(np, torch, data):
+    """K1 against its plain version at the GAN warm-up's shapes: one
+    utterance of the phase's train dir a call, peak-normalized and padded to
+    a feature bucket as HifiGanDataset pads it for get_f0 (the 16000, 32000
+    and 48000-sample buckets), two calls bitwise equal. Returns the largest
+    abs error."""
+    import torch.nn.functional as F
+
+    from satpu_torch.hifigan.dataset import FEATURE_BUCKETS, _bucket_pad, normalize_audio
+    from satpu_torch.models.anonymizer import YAAPT_OPTS
+    from satpu_torch.ops import yaapt as Y
+    from satpu_torch.utils import kaldi_data
+
+    p = Y._merged_params(YAAPT_OPTS)
+    to_pad, frame_size, frame_jump, nfft = Y.frame_geometry(p)
+    g = Y.shc_params(nfft, p)
+    args = (g["min_shc"], g["n_out"], g["n_harm"], g["window_length"])
+    scp = sorted(kaldi_data.read_wav_scp(os.path.join(data, "wav.scp")).values())
+    wavs = [normalize_audio(kaldi_data.load_wav_from_scp(w)[0][0]) for w in scp[:2]]
+    worst = 0.0
+    # 0.9 s of an utterance, the utterance, two utterances end to end
+    for audio in (wavs[0][:14400], wavs[0], np.concatenate(wavs)):
+        x = torch.from_numpy(_bucket_pad(audio, FEATURE_BUCKETS)).cuda()
+        nl = Y.bandpass(F.pad(x, (to_pad, to_pad)) ** 2, p["sr"], p["bp_low"], p["bp_high"])
+        mag = Y.shc_magnitude(nl, Y.num_frames(x.shape[1], p), frame_size, frame_jump, nfft, p)
+        out, again = Y.shc_band(mag, *args), Y.shc_band(mag, *args)
+        ref = Y.shc_band_plain(mag, *args)
+        max_abs = (out - ref).abs().max().item()
+        rel = max_abs / ref.abs().max().item()
+        same = bool(torch.equal(out, again))
+        worst = max(worst, max_abs)
+        print(f"[gan] shc_band vs plain at the warm-up's shape, {len(audio)} samples padded to"
+              f" {x.shape[1]}: mag [{mag.shape[0]} x {mag.shape[1]}] -> [{out.shape[0]} x"
+              f" {out.shape[1]}]: max abs err {max_abs:.3e}, rel {rel:.3e} (tolerance rel 1e-5);"
+              f" two calls bitwise equal: {same}")
+        check(rel <= 1e-5, f"shc_band disagrees with its plain version at {x.shape[1]} samples")
+        check(same, f"two shc_band calls differ at {x.shape[1]} samples")
+    return worst
+
+
+def phase_gan(np, torch, card):
+    """The train_vc CLI on the card at hifigan.ini's widths for one epoch;
+    returns the SHC kernel's launches over that run and its largest abs
+    error against the plain version at the run's shapes."""
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import anonymize, train_vc
+    from satpu_torch.hifigan import trainer as gan_trainer
+    from satpu_torch.ops import yaapt as Y
+    from satpu_torch.utils import kaldi_data
+
+    root = os.path.join(WORK, "gan")
+    t0 = time.perf_counter()
+    dirs = {}
+    for name, n in (("train", len(SPEAKERS)), ("dev", GAN_DEV)):
+        d = dirs[name] = os.path.join(root, name)
+        os.makedirs(d)
+        wav_scp, utt2spk = {}, {}
+        for k in range(n):
+            # 1.1-1.6 s in whole BN frames of 320 samples
+            samples = 320 * (55 + 5 * (k % 6))
+            x = voiced_utterance(np, (samples + 0.5) / SR, 90.0 + (37 * k) % 160,
+                                 seed=(300 if name == "train" else 900) + k)[0]
+            utt = f"{SPEAKERS[k]}-{name}{k}"
+            wav_scp[utt] = os.path.join(root, f"{utt}.wav")
+            kaldi_data.write_wav(wav_scp[utt], x, SR)
+            utt2spk[utt] = SPEAKERS[k]
+        kaldi_data.write_keyed_text(wav_scp, os.path.join(d, "wav.scp"))
+        kaldi_data.write_keyed_text(utt2spk, os.path.join(d, "utt2spk"))
+    # the frozen extractor: the flagship's TDNN-F + VQ-48 (random weights)
+    asrbn = os.path.join(root, "asrbn.pt")
+    net = infer_helper.build_model("asrbn_tdnnf", device="cpu", seed=0, **FLAGSHIP["asrbn"])
+    infer_helper.save_model(asrbn, "asrbn_tdnnf", FLAGSHIP["asrbn"], net.state_dict())
+    del net
+    print(f"[gan] {len(SPEAKERS)} train + {GAN_DEV} dev voiced utterances of 1.1-1.6 s and the"
+          f" flagship extractor written in {time.perf_counter() - t0:.1f} s")
+
+    recorded = []
+    step = gan_trainer.GanTrainer.train_step
+
+    def recording(self, batch):  # every step's metrics (the CLI logs every 50th)
+        m = step(self, batch)
+        recorded.append({k: float(v) for k, v in m.items()})
+        return m
+
+    exp = os.path.join(root, "exp")
+    gan_trainer.GanTrainer.train_step = recording
+    Y.shc_band.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = train_vc.main(["--config", os.path.join(ROOT, GAN_CONFIG), "--train-set",
+                            dirs["train"], "--dev-set", dirs["dev"], "--dirname", exp,
+                            "--asrbn-checkpoint", asrbn, "--training-epochs", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gan_trainer.GanTrainer.train_step = step
+    launches = Y.shc_band.launches
+    check(rc == 0, f"train_vc exited {rc}")
+    steps = -(-len(SPEAKERS) // 32)
+    print(f"[gan] train_vc on cuda ({GAN_CONFIG}: generator 512, MPD 2/3/5/7/11, MSD x3, B=32,"
+          f" segment {GAN_SEGMENT}, f32): fake_epoch over {len(SPEAKERS)} utterances, {steps}"
+          f" steps, validation and checkpoints in {wall:.1f} s (first call, cold); shc_band"
+          f" launches {launches} [{card}]")
+    check(launches >= len(SPEAKERS), f"the warm-up launched shc_band {launches} times")
+    shc_err = gan_shc_check(np, torch, dirs["train"])
+    check(len(recorded) == steps, f"{len(recorded)} steps, not {steps}")
+    for i, m in enumerate(recorded, 1):
+        check(all(np.isfinite(v) for v in m.values()), f"step {i} metrics not finite: {m}")
+        print(f"[gan]   step {i}: loss_gen_all {m['loss_gen_all']:.4f}, loss_disc_all"
+              f" {m['loss_disc_all']:.4f}, mel_spec_error {m['mel_spec_error']:.4f},"
+              f" lr {m['lr']:.6f}")
+    names = set(os.listdir(exp))
+    triplet = {f"g_{steps}.ckpt", f"d_{steps}.ckpt", f"trainer_{steps}.ckpt", "g_best.ckpt"}
+    check(triplet <= names, f"checkpoints {sorted(names)}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        val = [json.loads(line) for line in f]
+    val = [r["val_mel_error"] for r in val if "val_mel_error" in r]
+    check(len(val) == 1 and np.isfinite(val[0]), f"validation mel error {val}")
+    print(f"[gan] {sorted(triplet)} written; validation mel error {val[0]:.4f}")
+
+    # the written generator serves through the anonymize CLI
+    serve = os.path.join(root, "serve")
+    os.makedirs(serve)
+    src = kaldi_data.read_wav_scp(os.path.join(dirs["dev"], "wav.scp"))
+    two = dict(sorted(src.items())[:2])
+    kaldi_data.write_keyed_text(two, os.path.join(serve, "wav.scp"))
+    kaldi_data.write_keyed_text({u: u.split("-")[0] for u in two}, os.path.join(serve, "utt2spk"))
+    rc = anonymize.main(["--checkpoint", os.path.join(exp, "g_best.ckpt"), "--directory", serve,
+                         "--target-selection-algorithm", "random_per_utt",
+                         "--results-dir", os.path.join(root, "serve_out")])
+    check(rc == 0, f"anonymize exited {rc}")
+    out = kaldi_data.read_wav_scp(os.path.join(serve + "_anon", "wav.scp"))
+    check(sorted(out) == sorted(two), "one output wav per utterance")
+    for utt, path in out.items():
+        y, _ = kaldi_data.load_wav_from_scp(path)
+        n = kaldi_data.load_wav_from_scp(two[utt])[0].shape[1]
+        check(y.shape == (1, n) and bool(np.isfinite(y).all())
+              and float(np.abs(y).max()) > 1e-3, f"{utt}: served wav {y.shape}, input {n}")
+    print(f"[gan] g_best.ckpt served by the anonymize CLI on cuda: {len(out)} wavs of the"
+          " input's length, finite, not silent")
+    return launches, shc_err
+
+
+def phase_gan_cpu(np, torch):
+    """One tiny GAN step (a 4 x 4 upsampling generator, periods 2 and 3, two
+    scales at 1/16 of the widths, f32) on the card against the port's CPU
+    path, from the same weights and batch: metrics rel <= 1e-4, gradients rel
+    <= 1e-3 per tensor, the spectral-norm state rel <= 1e-5."""
+    import copy
+
+    from satpu_torch.hifigan.trainer import GanHparams, GanTrainer
+    from satpu_torch.models.anonymizer import AnonymizationNet, AnonymizerConfig
+    from satpu_torch.models.asrbn import TDNNFNetConfig
+
+    cfg = AnonymizerConfig(asrbn=TDNNFNetConfig(output_dim=8, hidden_dim=16, bottleneck_dim=8,
+                                                prefinal_bottleneck_dim=8),
+                           num_speakers=4, bn_dim=8, upsample_rates=(4, 4),
+                           upsample_kernel_sizes=(8, 8), upsample_initial_channel=32)
+    h = GanHparams(segment_size=256, n_fft=64, num_mels=8, hop_size=16, win_size=64,
+                   mpd_periods=(2, 3), msd_scales=2, disc_channel_scale=1 / 16)
+    rng = np.random.default_rng(5)
+    batch = {"f0": (np.abs(rng.standard_normal((2, 16))) * 100).astype(np.float32),
+             "bn": rng.standard_normal((2, 8, 16)).astype(np.float32),
+             "spk": np.eye(4, dtype=np.float32)[[0, 1]],
+             "audio": (rng.standard_normal((2, 256)) * 0.1).astype(np.float32)}
+    cpu = GanTrainer(AnonymizationNet(cfg), h)
+    gpu = GanTrainer(copy.deepcopy(cpu.model).cuda(), h)
+    gpu.mpd.load_state_dict(cpu.mpd.state_dict())
+    gpu.msd.load_state_dict(cpu.msd.state_dict())
+    out = {}
+    for dev, trainer in (("cpu", cpu), ("cuda", gpu)):
+        m = trainer.train_step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        grads = {f"{part}.{n}": p.grad.cpu() for part, mod in
+                 (("g", trainer.model), ("mpd", trainer.mpd), ("msd", trainer.msd))
+                 for n, p in mod.named_parameters() if p.grad is not None}
+        sn = {k: v.cpu() for k, v in trainer.msd.state_dict().items() if k.endswith((".u", ".v"))}
+        out[dev] = ({k: float(v) for k, v in m.items()}, grads, sn)
+    (m_c, g_c, sn_c), (m_g, g_g, sn_g) = out["cpu"], out["cuda"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    m_rel = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c)
+    g_rel = max(rel(g_g[k], g_c[k]) for k in g_c)
+    sn_rel = max(rel(sn_g[k], sn_c[k]) for k in sn_c)
+    print(f"[gan-cpu] tiny GAN step, f32, TF32 off: metrics max rel {m_rel:.3e} (tolerance"
+          f" 1e-4); gradients max rel {g_rel:.3e} over {len(g_c)} tensors (tolerance 1e-3);"
+          f" spectral-norm (u, v) max rel {sn_rel:.3e} over {len(sn_c)} vectors (tolerance"
+          f" 1e-5); loss_gen_all card {m_g['loss_gen_all']:.6f} vs CPU {m_c['loss_gen_all']:.6f}")
+    check(set(g_g) == set(g_c) and len(sn_c) == 16, "the same gradients and SN state")
+    check(m_rel <= 1e-4, "card GAN metrics depart from the CPU path")
+    check(g_rel <= 1e-3, "card GAN gradients depart from the CPU path")
+    check(sn_rel <= 1e-5, "card spectral-norm state departs from the CPU path")
+
+
+def phase_gan_throughput(np, torch, card):
+    """Full-width GAN steps (the flagship generator over 247 speakers, full
+    MPD and MSD) from a fixed batch at segment 16320: B=32 f32 (hifigan.ini)
+    and B=128 bf16 (hifigan_tpu.ini's policy). ms per step and audio-seconds
+    per second (host clock, unprofiled), peak memory, then a profile of as
+    many steps: the step's phases, busy share, launches, top device items.
+    The profile is informational: nothing read from it can fail."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.hifigan.trainer import PHASES, GanHparams, GanTrainer
+
+    for dtype, B, iters in (("float32", 32, 4), ("bfloat16", 128, 3)):
+        model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
+                                         compute_dtype=dtype, **FLAGSHIP)
+        trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT, compute_dtype=dtype))
+        batch = gan_batch(np, torch, B, "cuda")
+        for _ in range(2):  # warm-up: cuDNN's algorithm search, the optimizers' state
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        check(all(bool(torch.isfinite(torch.as_tensor(v))) for v in metrics.values()),
+              f"GAN metrics not finite at B={B} {dtype}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+        host, dev = train_split(prof, iters, prefix="gan.", phases=PHASES)
+        rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e3
+        audio = B * GAN_SEGMENT / SR
+        print(f"[gan-throughput] B={B} x {GAN_SEGMENT} samples, {dtype}, generator 512 + MPD +"
+              f" MSD: {wall * 1e3:.1f} ms/step (host clock), {audio / wall:.1f} audio-s/s; peak"
+              f" mem {peak:.2f} GiB [{card}]")
+        print(f"[gan-throughput]   profiled split ms/step, host / device: "
+              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
+              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
+              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
+              f" {sum(r[1] for r in rows)} launches")
+        for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+            print(f"[gan-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
+                  f" x{count:<5d} {key[:90]}")
+        del trainer, model, batch, prof
+
+
 def main() -> int:
     import torch
 
@@ -1293,6 +1575,15 @@ def main() -> int:
     # evaluation: eval_anon over the slice phase's output (no kernel of its own)
     graph, paths = phase_eval(np, torch, card)
     phase_eval_throughput(np, torch, graph, paths, card)
+    # GAN training: train_vc (its feature warm-up runs kernel K1)
+    gan_launches, gan_shc_err = phase_gan(np, torch, card)
+    print(f"[kernels] shc_band launches by path: anonymize {launches['shc_band']}, train_vc"
+          f" {gan_launches} (their sum in the kernels line)")
+    launches["shc_band"] += gan_launches
+    shc = next(e for e in entries if e["name"] == "shc_band")
+    shc["max_abs_err"] = max(shc["max_abs_err"], gan_shc_err)
+    phase_gan_cpu(np, torch)
+    phase_gan_throughput(np, torch, card)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

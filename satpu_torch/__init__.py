@@ -1,6 +1,6 @@
 """satpu_torch — the PyTorch/CUDA port of satpu: anonymization serving,
-LF-MMI chain training of its bottleneck extractor, and privacy/utility
-evaluation.
+LF-MMI chain training of its bottleneck extractor, HiFi-GAN training of its
+generator, and privacy/utility evaluation.
 
 A package beside ``satpu`` (the JAX reference, which it never imports) that
 runs the same models with PyTorch on an NVIDIA GPU. Each module mirrors its
@@ -11,8 +11,11 @@ one against it on the same weights and inputs.
 - ``satpu_torch.ops``    fbank, CMVN, YAAPT F0 (its SHC band is the
                          hand-written CUDA kernel ``csrc/shc.cu``).
 - ``satpu_torch.models`` TDNN-F ASR-BN extractor (inference and training),
-                         HiFi-GAN generator, the anonymizer, and the weight
-                         bridge from satpu variables.
+                         HiFi-GAN generator and discriminators, the
+                         anonymizer, and the weight bridge from satpu
+                         variables.
+- ``satpu_torch.hifigan`` GAN training data (cached features, aligned
+                         crops) and the GAN trainer.
 - ``satpu_torch.chain``  FST, den-graph and decoding-graph code, the chain
                          objective (its den forward-backward is the CUDA
                          kernel pair ``csrc/den_fb.cu``), NG-SGD, egs, the
@@ -25,7 +28,7 @@ one against it on the same weights and inputs.
                          checkpoints, metrics log, the CUDA build helper,
                          WER and the kaldi ark writer.
 - ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, the
-                         ``train_asr`` CLI, and the ``eval_anon`` CLI.
+                         ``train_asr``, ``train_vc`` and ``eval_anon`` CLIs.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
 when CUDA is absent rather than falling back. Evaluation on the card:
@@ -36,9 +39,24 @@ with TF32 off; decoding and scoring run on the host.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __version__ = "0.1.0"
+
+
+@contextlib.contextmanager
+def f32_matmuls():
+    """TF32 off for matmuls and cuDNN convs while the block runs, so that f32
+    work runs in f32 on the card (torch leaves cuDNN's TF32 on by default);
+    the previous flags are restored on exit."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def resolve_device(device) -> torch.device:

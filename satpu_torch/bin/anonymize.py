@@ -31,8 +31,12 @@ class AnonymizeOpts(cfg.Opts):
     seed: int = 0
     num_shards: int = 1
     shard: int = 0
+    # local process fan-out over num_procs shards (not ported: ROADMAP item 8)
+    num_procs: int = 1
     # serving compute dtype override
     compute_dtype: str = "bfloat16"
+    # batches sharded over all local cards (not ported: ROADMAP item 15)
+    serve_mesh: bool = False
     device: str = "cuda"
 
 
@@ -52,6 +56,13 @@ def main(argv=None):
     if not opts.checkpoint or not opts.directory:
         print("need --checkpoint and --directory", file=sys.stderr)
         return 2
+    if opts.num_procs > 1:
+        raise NotImplementedError("--num-procs (a process per shard) is not ported to "
+                                  "satpu_torch yet (ROADMAP item 8); run one process per "
+                                  "--shard of --num-shards instead")
+    if opts.serve_mesh:
+        raise NotImplementedError("--serve-mesh (batches sharded over several cards) is not "
+                                  "ported to satpu_torch yet (ROADMAP item 15)")
 
     from .. import infer_helper
     from .pipeline import process_data
@@ -73,7 +84,8 @@ def main(argv=None):
         target_constant_spkid=opts.target_constant_spkid,
         batch_size=opts.batch_size, f0_transformation=opts.f0_transformation,
         seed=opts.seed, new_datadir_suffix=opts.new_datadir_suffix,
-        num_shards=opts.num_shards, shard=opts.shard, progress_cb=progress)
+        num_shards=opts.num_shards, shard=opts.shard,
+        f0_speaker_stats=meta.get("f0_speaker_stats"), progress_cb=progress)
     logging.info("done: %s", out_dir)
     return 0
 

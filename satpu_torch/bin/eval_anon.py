@@ -16,7 +16,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import logging
@@ -27,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import f32_matmuls, resolve_device
 from ..utils import config as cfg
 from ..utils import kaldi_data
 from ..utils.wer import corpus_wer
@@ -65,19 +64,6 @@ class EvalOpts(cfg.Opts):
     ece_plot: bool = False  # write results/ece.png (needs matplotlib)
     results: str = "exp/eval"
     device: str = "cuda"
-
-
-@contextlib.contextmanager
-def f32_matmuls():
-    """TF32 off for matmuls and cuDNN convs while the block runs (the
-    cosine scores are thresholded: TF32's 10-bit inputs would move EER
-    ties); the previous flags are restored on exit."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def evaluate_asr(opts) -> dict:
@@ -264,12 +250,16 @@ def main(argv=None):
             if sec != "var":
                 opts.load_from_config(kv)
     opts.load_from_args(rest)
-    resolve_device(opts.device)
+    dev = resolve_device(opts.device)
     if opts.serve_mesh:
-        raise NotImplementedError("--serve-mesh (loglike batches sharded over several "
-                                  "cards) is not ported to satpu_torch yet (ROADMAP item 15)")
+        if dev.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError("--serve-mesh (loglike batches sharded over several "
+                                      "cards) is not ported to satpu_torch yet (ROADMAP "
+                                      "item 15)")
+        logging.info("serve_mesh: one device, batches run unsharded")
     os.makedirs(opts.results, exist_ok=True)
     out = {}
+    # the cosine scores are thresholded: TF32's 10-bit inputs would move EER ties
     with f32_matmuls():
         if opts.asr_checkpoint:
             out["asr"] = evaluate_asr(opts)

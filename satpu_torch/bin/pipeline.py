@@ -102,7 +102,8 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
                  target_constant_spkid: str = "", batch_size: int = 32,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, f0_transformation: str = "",
                  seed: int = 0, new_datadir_suffix: str = "_anon",
-                 num_shards: int = 1, shard: int = 0, progress_cb=None) -> str:
+                 num_shards: int = 1, shard: int = 0, f0_speaker_stats: Optional[dict] = None,
+                 progress_cb=None) -> str:
     """Anonymize every utterance of ``data_dir``; returns the new data dir.
 
     model: AnonymizationNet on its serving device; speakers: ordered target
@@ -110,11 +111,23 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
     num_shards-th utterance (offset ``shard``) is processed and a partial
     ``wav_shard{k}.scp`` is written; the full ``wav.scp`` is merged once all
     shards are present.
+
+    A model with ``f0_norm == "none"`` takes normalized F0: with
+    ``f0_speaker_stats`` (a ``SpeakerCMVN.to_meta()`` from the checkpoint)
+    each utterance's F0 is normalized on the host by its source speaker's
+    statistics, and a speaker without them passes through. Without the
+    statistics such a model is refused (raw F0 in Hz is not its input).
     """
-    if model.cfg.f0_norm != "utt":
-        raise NotImplementedError(
-            f"f0_norm={model.cfg.f0_norm!r} (speaker-level F0 normalization from "
-            "checkpoint statistics) is not ported to satpu_torch yet")
+    f0_cmvn = None
+    if model.cfg.f0_norm == "none":
+        from ..ops.cmvn import SpeakerCMVN
+
+        if not f0_speaker_stats:
+            raise ValueError("the model takes speaker-normalized F0 (f0_norm='none') and its "
+                             "checkpoint holds no f0_speaker_stats")
+
+        f0_cmvn = SpeakerCMVN.from_meta(f0_speaker_stats)
+        f0_cmvn.pass_through = True
     device = next(model.parameters()).device
     rng = random.Random(seed)
     out_dir = data_dir.rstrip("/") + new_datadir_suffix
@@ -183,6 +196,11 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
 
             wav_t, tids_t = (_to_device(torch.from_numpy(a), device) for a in (wav_batch, tids))
             f0 = model.get_f0(wav_t)
+            if f0_cmvn is not None:
+                f0_host = f0.cpu().numpy()
+                for j, ut in enumerate(utids):
+                    f0_host[j] = f0_cmvn(f0_host[j], source_utt2spk.get(ut, ut))
+                f0 = _to_device(torch.from_numpy(f0_host), device)
             out = model.convert(wav_t, f0, tids_t, generator=generator)
             host, done = _start_host_copy(out[:len(batch)])
             # write the PREVIOUS batch while the device converts this one

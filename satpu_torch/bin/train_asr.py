@@ -69,6 +69,13 @@ class TrainAsrOpts(cfg.Opts):
     init_weight_model: str = ""
     compute_dtype: str = "float32"
     augmentation: str = ""
+    # options of the variants (ROADMAP item 11): tdnnf_spkadv's train_asi
+    # phase and gradient reversal, tdnnf_dp's Laplace epsilon, the wav2vec2
+    # front's size
+    freeze_encoder: bool = False
+    adversarial: bool = True
+    dp_epsilon: float = 0.0
+    wav2vec2_size: str = "large"
     device: str = "cuda"
 
 
@@ -77,6 +84,10 @@ _UNPORTED_MODELS = ("tdnnf_dp", "tdnnf_spkadv", "tdnnf_wav2vec2", "tdnnf_wav2vec
 
 
 def _check_supported(opts: TrainAsrOpts) -> None:
+    if opts.freeze_encoder and opts.model != "tdnnf_spkadv":
+        raise ValueError(
+            "freeze_encoder is the spkadv train_asi phase and requires model = tdnnf_spkadv; "
+            "for the wav2vec2 front use its built-in freeze schedule")
     if opts.model in _UNPORTED_MODELS:
         raise NotImplementedError(f"model {opts.model!r} is not ported yet: ROADMAP Queue 1,"
                                   " item 11 (the dp / spkadv / wav2vec2 variants)")

@@ -19,6 +19,13 @@ BN layer ``tdnnf_bn`` -> ``tdnnfs.{n}``, ``tdnnf_after{k}`` ->
 natural-gradient preconditioners, which the port keeps in its trainer, not
 in the state_dict) across under the same module paths.
 
+``from_satpu_discriminators`` carries a satpu ``MultiPeriodDiscriminator``
+or ``MultiScaleDiscriminator`` across: its ``params`` (``weight_v`` /
+``weight_g`` / ``bias``, and the spectral-normed scale's ``weight_orig``)
+and the MSD's ``spectral`` collection (``u``, ``v``) keep their names, and
+``discriminators_{i}`` / ``convs_{j}`` become ``discriminators.{i}`` /
+``convs.{j}``.
+
 ``from_satpu_xvector`` does the same for an x-vector model
 (``EcapaXVector`` / ``ResNetXVector``): flax scopes ``<name>_<i>``
 (``block_0``, ``convs_3``, ``bns_3``, ``fc_0``, ``attention_4``,
@@ -33,7 +40,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-_LIST_SCOPE = re.compile(r"^(ups|resblocks|convs1|convs2|convs)_(\d+)$")
+_LIST_SCOPE = re.compile(r"^(ups|resblocks|convs1|convs2|convs|discriminators)_(\d+)$")
 _XVECTOR_SCOPE = re.compile(r"^(block|convs|bns|fc|attention|shortcut)_(\d+)$")
 _MID_LAYER = re.compile(r"^tdnnf(\d+)$")
 _AFTER_LAYER = re.compile(r"^tdnnf_after(\d+)$")
@@ -100,6 +107,13 @@ def from_satpu_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                  if kind == "tdnnf" and (m := _MID_LAYER.match(path[0]))], default=0)
     return {prefix + (_tdnnf_key(path, n_mid) if kind == "tdnnf" else _hifigan_key(path)):
             _tensor(path, leaf) for prefix, kind, path, leaf in entries}
+
+
+def from_satpu_discriminators(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """satpu MPD / MSD variables {params, spectral} -> torch state_dict."""
+    return {_hifigan_key(path): _tensor(path, leaf)
+            for coll in ("params", "spectral")
+            for path, leaf in _flatten(variables.get(coll) or {})}
 
 
 def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:

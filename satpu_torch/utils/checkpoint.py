@@ -70,9 +70,17 @@ def latest_checkpoint(exp_dir: str, prefix: str = "", suffix: str = ".ckpt") -> 
     return os.path.join(exp_dir, entries[-1][1]) if entries else None
 
 
-def checkpoint_gc(exp_dir: str, prefix: str, suffix: str = ".ckpt", keep_last: int = 10) -> None:
-    """Delete all but the ``keep_last`` newest tagged checkpoints."""
-    for _, name in tagged_checkpoints(exp_dir, prefix, suffix)[:-keep_last]:
+def checkpoint_gc(exp_dir: str, prefix: str, suffix: str = ".ckpt", keep_last: int = 10,
+                  keep_every: int = 0, protected=()) -> None:
+    """Delete all but the ``keep_last`` newest tagged checkpoints (all of
+    them when ``keep_last`` is 0), sparing every tag that is a multiple of
+    ``keep_every`` and the targets of the ``protected`` paths (symlinks such
+    as ``g_best.ckpt`` are followed)."""
+    entries = tagged_checkpoints(exp_dir, prefix, suffix)
+    protected = {os.path.basename(os.path.realpath(p)) for p in protected if p}
+    for tag, name in entries[:-keep_last] if keep_last else entries:
+        if (keep_every and tag % keep_every == 0) or name in protected:
+            continue
         os.remove(os.path.join(exp_dir, name))
 
 

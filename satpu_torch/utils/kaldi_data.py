@@ -9,7 +9,7 @@ from __future__ import annotations
 import os
 import struct
 import subprocess
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -128,6 +128,16 @@ def read_keyed_text(path: str) -> Dict[str, str]:
 def read_utt2len_file(path: str) -> Dict[str, int]:
     """utt2len -> {utt: number of samples}."""
     return {k: int(float(v)) for k, v in read_keyed_text(path).items()}
+
+
+def gen_utt2len(wav_scp_path: str, out_path: Optional[str] = None) -> Dict[str, int]:
+    """Number of samples per utterance; written as utt2len when ``out_path``."""
+    utt2len = {}
+    for utt, entry in read_wav_scp(wav_scp_path).items():
+        utt2len[utt] = load_wav_from_scp(entry)[0].shape[1]
+    if out_path:
+        write_keyed_text({k: str(v) for k, v in utt2len.items()}, out_path)
+    return utt2len
 
 
 def write_keyed_text(table: Dict[str, str], path: str) -> None:

@@ -13,6 +13,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import XV_TINY, rel_err, satpu_apply, satpu_init, satpu_xvector
 
@@ -173,9 +174,21 @@ def test_eval_anon_cli_on_cpu(fx, tmp_path, rescore_mode, xvector_mode, cohort_d
     assert [x for x in ctm if x] == _satpu_ctm(fx, lls, rescore_mode)
 
 
-def test_eval_anon_refuses_serve_mesh(tmp_path):
+def test_eval_anon_refuses_serve_mesh(tmp_path, monkeypatch):
+    """Sharding over several cards is not ported: refused when there are."""
     from satpu_torch.bin import eval_anon
 
+    monkeypatch.setattr(eval_anon, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        eval_anon.main(["--device", "cpu", "--serve-mesh", "true",
-                        "--results", str(tmp_path / "r")])
+        eval_anon.main(["--serve-mesh", "true", "--results", str(tmp_path / "r")])
+    assert not (tmp_path / "r").exists()
+
+
+def test_eval_anon_serve_mesh_on_one_device_runs_unsharded(tmp_path):
+    """satpu runs unsharded on one device (satpu/bin/eval_anon.py:106)."""
+    from satpu_torch.bin import eval_anon
+
+    assert eval_anon.main(["--device", "cpu", "--serve-mesh", "true",
+                           "--results", str(tmp_path / "r")]) == 0
+    assert json.loads((tmp_path / "r" / "results.json").read_text()) == {}

@@ -41,7 +41,9 @@ def test_cli_import_leaves_jax_unloaded():
             "satpu_torch.infer_helper, satpu_torch.bin.train_asr, satpu_torch.chain, "
             "satpu_torch.chain.trainer, satpu_torch.chain.dataset, satpu_torch.chain.prep, "
             "satpu_torch.bin.eval_anon, satpu_torch.sidekit.xvector, "
-            "satpu_torch.chain.decoder, satpu_torch.native\n"
+            "satpu_torch.chain.decoder, satpu_torch.native, satpu_torch.bin.train_vc, "
+            "satpu_torch.hifigan.trainer, satpu_torch.hifigan.dataset, satpu_torch.ops.mel, "
+            "satpu_torch.utils.feature_cache\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -77,3 +79,12 @@ def test_asv_and_eval_anon_default_to_cuda(monkeypatch, tmp_path):
     assert not (tmp_path / "r").exists()
     model = infer_helper.build_model("asv_xvector", device="cpu", **XV_TINY)
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_train_vc_defaults_to_cuda(monkeypatch, tmp_path):
+    from satpu_torch.bin import train_vc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vc.main(["--train-set", str(tmp_path / "data"), "--dirname", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()

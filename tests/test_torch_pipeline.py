@@ -82,6 +82,25 @@ def test_cli_defaults_to_cuda(setup, monkeypatch, capsys):
     assert main(["--directory", data]) == 2  # no checkpoint
 
 
+@pytest.mark.parametrize("flag", [("--num-procs", "2", "item 8"),
+                                  ("--serve-mesh", "true", "item 15")],
+                         ids=["num_procs", "serve_mesh"])
+def test_unported_serving_flags_raise(setup, flag):
+    """satpu fans out processes / shards over cards on these flags; the port
+    refuses them instead of running one process over the whole dir."""
+    from satpu_torch.bin.anonymize import AnonymizeOpts, main
+
+    _, ckpt, data, _ = setup
+    name, value, item = flag
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        main(["--checkpoint", ckpt, "--directory", data, "--device", "cpu", name, value,
+              "--new-datadir-suffix", "_refused"])
+    assert not os.path.exists(data + "_refused")
+    # one process on one device: the defaults run
+    opts = AnonymizeOpts().load_from_args(["--num-procs", "1", "--serve-mesh", "false"])
+    assert (opts.num_procs, opts.serve_mesh) == (1, False)
+
+
 def test_sharded_runs_merge(setup):
     from satpu_torch import infer_helper
     from satpu_torch.bin.pipeline import process_data
@@ -104,7 +123,10 @@ def test_speaker_f0_norm_is_refused(setup):
     root, _, data, _ = setup
     model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cpu",
                                      asrbn=dict(ASRBN_TINY), f0_norm="none", **ANON_TINY)
-    with pytest.raises(NotImplementedError, match="f0_norm"):
+    # a model that takes speaker-normalized F0 is served only with the
+    # statistics (train_vc stores them in the checkpoint; see
+    # test_torch_train_vc.py for the served path)
+    with pytest.raises(ValueError, match="f0_speaker_stats"):
         process_data(model, SPEAKERS, data, str(root / "wavs_none"))
 
 

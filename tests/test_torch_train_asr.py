@@ -91,6 +91,31 @@ def test_unported_options_raise(fixture, opt):
         train_asr.main(_args(fixture, exp, *opt))
 
 
+@pytest.mark.parametrize("opts", [
+    ("--model", "tdnnf_spkadv", "--freeze-encoder", "true"),
+    ("--model", "tdnnf_spkadv", "--adversarial", "false"),
+    ("--model", "tdnnf_dp", "--dp-epsilon", "2.0"),
+    ("--model", "tdnnf_wav2vec2", "--wav2vec2-size", "base")],
+    ids=["freeze_encoder", "adversarial", "dp_epsilon", "wav2vec2_size"])
+def test_variant_options_parse_and_their_models_raise(fixture, opts):
+    from satpu_torch.bin.train_asr import TrainAsrOpts
+
+    parsed = TrainAsrOpts().load_from_args(list(opts))
+    assert str(getattr(parsed, opts[2][2:].replace("-", "_"))).lower() in (opts[3], "2.0")
+    exp = os.path.join(fixture["root"], "exp_variant")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train_asr.main(_args(fixture, exp, *opts))
+
+
+def test_freeze_encoder_needs_spkadv(fixture):
+    """satpu refuses --freeze-encoder without tdnnf_spkadv
+    (satpu/bin/train_asr.py:248-252)."""
+    exp = os.path.join(fixture["root"], "exp_freeze")
+    with pytest.raises(ValueError, match="tdnnf_spkadv"):
+        train_asr.main(_args(fixture, exp, "--freeze-encoder", "true"))
+    assert not os.path.exists(exp)
+
+
 def test_default_device_raises_without_a_card(fixture):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device is usable")
