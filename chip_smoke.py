@@ -61,7 +61,21 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 15. gan-throughput: full-width GAN steps from a fixed batch, B=32 f32 and
     B=128 bf16 at segment 16320: ms per step, audio-seconds per second,
     peak memory, then a profile of as many steps: the step's phases (the
-    trainer's profiler ranges), the busy share and the top device items.
+    trainer's profiler ranges), the busy share and the top device items;
+16. asv: the ``train_asv`` CLI on the card with
+    egs/asv/voxceleb/configs/ecapa.ini's widths and batch (ECAPA 512, B=1024
+    = 16 speakers x 64, 3 s, f32, SpecAugment, batch statistics) for 2
+    epochs over 16 synthetic speakers x 4 voiced utterances of 3.5-6 s;
+    checks every epoch's loss and validation EER, the checkpoints, best.ckpt
+    and the metrics log, and that best.ckpt loads on the card and embeds the
+    validation chunks;
+17. asv-cpu: one tiny ECAPA step and one tiny half-ResNet step on the card
+    against the port's CPU path (loss, gradients, batch-norm statistics);
+18. asv-throughput: full-width ECAPA steps from a fixed batch of 3 s with the
+    head over 5994 speakers, B=1024 f32, B=1024 bf16 and B=128 f32: ms per
+    step, audio-seconds per second, peak memory, then a profile of as many
+    steps: the ``asv.<phase>`` split, the busy share and the top device
+    items.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -118,6 +132,10 @@ EVAL_WORDS, EVAL_SENTENCES = 60, 200
 # validation batch)
 GAN_CONFIG = "egs/vc/libritts/configs/hifigan.ini"
 GAN_SEGMENT, GAN_DEV = 16320, 32
+# ASV training: the reference recipe's config (B=1024 = 16 speakers x 64) over
+# 16 synthetic speakers; the throughput head spans VoxCeleb2 dev's speakers
+ASV_CONFIG = "egs/asv/voxceleb/configs/ecapa.ini"
+ASV_SPEAKERS, ASV_HEAD = 16, 5994
 
 
 def check(ok: bool, what: str) -> None:
@@ -1538,6 +1556,207 @@ def phase_gan_throughput(np, torch, card):
         del trainer, model, batch, prof
 
 
+def phase_asv(np, torch, card):
+    """The train_asv CLI on the card at ecapa.ini's widths and batch (ECAPA
+    512, 192-d embedding, 80 mels, ArcMargin s=30 m=0.2, B=1024 as 16
+    speakers x 64, 3 s segments, f32, SpecAugment and batch statistics) for 2
+    epochs of 2 steps over 16 synthetic speakers x 4 voiced utterances of
+    3.5-6 s: every epoch's loss and validation EER finite, the model and
+    trainer checkpoints, best.ckpt and the metrics log written, best.ckpt
+    loaded on the card and embedding the validation chunks."""
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import train_asv
+    from satpu_torch.sidekit.dataset import SideSet
+    from satpu_torch.sidekit.trainer import extract_xvectors
+    from satpu_torch.utils import kaldi_data
+
+    root = os.path.join(WORK, "asv")
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    wav_scp, utt2spk = {}, {}
+    for s in range(ASV_SPEAKERS):
+        for u in range(4):
+            seconds = 3.5 + 2.5 * ((7 * s + 3 * u) % 8) / 7  # 3.5-6 s
+            x = voiced_utterance(np, seconds, 90.0 + 12 * s + 5 * u, seed=500 + 10 * s + u)[0]
+            utt = f"asv{s:02d}-u{u}"
+            wav_scp[utt] = os.path.join(root, f"{utt}.wav")
+            kaldi_data.write_wav(wav_scp[utt], x, SR)
+            utt2spk[utt] = f"asv{s:02d}"
+    kaldi_data.write_keyed_text(wav_scp, os.path.join(data, "wav.scp"))
+    kaldi_data.write_keyed_text(utt2spk, os.path.join(data, "utt2spk"))
+    exp = os.path.join(root, "exp")
+    t0 = time.perf_counter()
+    rc = train_asv.main(["--config", os.path.join(ROOT, ASV_CONFIG), "--train-set", data,
+                         "--dirname", exp, "--samples-per-speaker", "2", "--epochs", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train_asv exited {rc}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    check([r["epoch"] for r in logged] == [0, 1], f"epochs logged: {logged}")
+    side = SideSet.from_data_dir(data)
+    steps = 2 * ASV_SPEAKERS * 2 * 64 // 1024
+    print(f"[asv] train_asv on cuda ({ASV_CONFIG}: ECAPA 512, 192-d, ArcMargin s=30 m=0.2,"
+          f" B=1024 = 16 speakers x 64, 3 s, f32, SpecAugment, batch statistics): 2 epochs of"
+          f" {steps // 2} steps over {len(side)} chunks of {len(wav_scp)} utterances (3.5-6 s)"
+          f" in {wall:.1f} s (first call, cold) [{card}]")
+    for r in logged:
+        check(np.isfinite(r["loss"]) and np.isfinite(r["val_eer"]), f"epoch {r}")
+        print(f"[asv]   epoch {int(r['epoch'])}: step {r['step']}, loss {r['loss']:.4f},"
+              f" validation EER {100 * r['val_eer']:.2f}%")
+    check(logged[-1]["step"] == steps, f"{logged[-1]['step']} steps, not {steps}")
+    names = set(os.listdir(exp))
+    want = {"0.ckpt", "1.ckpt", "trainer_0.ckpt", "trainer_1.ckpt", "best.ckpt",
+            "metrics.jsonl"}
+    check(want <= names and os.path.islink(os.path.join(exp, "best.ckpt")),
+          f"written: {sorted(names)}")
+    model, meta = infer_helper.load_model(os.path.join(exp, "best.ckpt"), device="cuda")
+    model.eval()
+    val = [side[i][0] for i in range(0, len(side), max(len(side) // 64, 1))][:64]
+    xv = extract_xvectors(model, val)
+    check(meta["model_id"] == "asv_xvector" and xv.shape == (len(val), 192)
+          and bool(np.isfinite(xv).all()), f"best.ckpt x-vectors {xv.shape}")
+    print(f"[asv] {sorted(want)} written; best.ckpt (epoch {meta['epoch']}, "
+          f"{len(meta['speakers'])} speakers) loads on cuda and embeds the {len(val)}"
+          f" validation chunks: finite {list(xv.shape)}")
+
+
+def phase_asv_cpu(np, torch):
+    """One tiny ECAPA step and one tiny half-ResNet step (24 mels, 32
+    channels, 10 speakers, B=8 x 8000 samples, f32, SpecAugment off) on the
+    card against the port's CPU path from the same weights and batch: the
+    log-mel features (max abs error) and the loss from the audio; then, fed
+    the CPU's features on both sides (the train-mode trunk amplifies a
+    difference in its input features), the loss, the new batch-norm
+    statistics and each gradient (max rel error each; tensors whose CPU
+    gradient is under 1e-6 of the largest, zero in exact arithmetic, left
+    out and counted). A ReLU input within rounding of zero takes either
+    branch, so single gradient entries move by more than rounding between
+    any two f32 runs (the half-ResNet's tensors by up to 4e-2 of their
+    largest between the CPU's f32 and f64): the card's gradients are held,
+    all tensors together, to the CPU's f64 ones in relative L2 norm within
+    10 times the CPU f32's own departure (1e-4 at least)."""
+    import copy
+
+    from satpu_torch import infer_helper
+    from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
+
+    rng = np.random.default_rng(6)
+    wav = torch.from_numpy((rng.standard_normal((8, 8000)) * 0.1).astype(np.float32))
+    target = torch.arange(8) % 10
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    for arch in ("ecapa", "resnet"):
+        cpu = infer_helper.build_model("asv_xvector", device="cpu", seed=3, arch=arch, n_mels=24,
+                                       channels=32, embedding_size=16, num_speakers=10,
+                                       spec_augment=False)
+        feats = cpu.features(wav)
+        f_abs = float((cpu.cuda().features(wav.cuda()).cpu() - feats).abs().max())
+        cpu.cpu()
+        out = {}
+        for dev, dtype, fed in (("cpu", torch.float32, False), ("cuda", torch.float32, False),
+                                ("cpu", torch.float32, True), ("cuda", torch.float32, True),
+                                ("cpu", torch.float64, True)):
+            model = copy.deepcopy(cpu).to(dev, dtype)
+            if fed:
+                model.features = lambda w, generator=None, d=dev, t=dtype: feats.to(d, t)
+            trainer = AsvTrainer(model, make_asv_optimizer(model, lr=1e-3))
+            m = trainer.train_step(wav.to(dev, dtype), target.to(dev))
+            out[dev, dtype, fed] = (
+                float(m["loss"]), {n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                {k: v.cpu().double() for k, v in model.state_dict().items() if "running" in k})
+        f32 = torch.float32
+        l_c, l_g = out["cpu", f32, False][0], out["cuda", f32, False][0]
+        l_wav = abs(l_g - l_c) / abs(l_c)
+        (l_c, g_c, s_c), (l_g, g_g, s_g) = out["cpu", f32, True], out["cuda", f32, True]
+        g_64 = out["cpu", torch.float64, True][1]
+        top = max(float(g.abs().max()) for g in g_c.values())
+        live = [k for k, g in g_c.items() if float(g.abs().max()) > 1e-6 * top]
+        l_rel = abs(l_g - l_c) / abs(l_c)
+        s_rel = max(rel(s_g[k], s_c[k]) for k in s_c)
+        g_rel = max(rel(g_g[k], g_c[k]) for k in live)
+
+        def l2(grads):  # relative L2 distance to the f64 gradients, all tensors
+            return float(sum(float(((grads[k] - g_64[k]) ** 2).sum()) for k in live) ** 0.5
+                         / sum(float((g_64[k] ** 2).sum()) for k in live) ** 0.5)
+
+        d_card, d_cpu = l2(g_g), l2(g_c)
+        print(f"[asv-cpu] tiny {arch} step, f32, TF32 off, batch statistics: log-mel features"
+              f" max abs err {f_abs:.3e} (tolerance 1e-3); from the audio, loss rel {l_wav:.3e}"
+              f" (tolerance 1e-4); on the CPU's features, loss card {l_g:.6f} vs CPU {l_c:.6f},"
+              f" rel {l_rel:.3e} (tolerance 1e-5), batch-norm statistics max rel {s_rel:.3e}"
+              f" over {len(s_c)} tensors (tolerance 1e-5), gradients max rel {g_rel:.3e} over"
+              f" {len(live)} tensors ({len(g_c) - len(live)} zero in exact arithmetic left"
+              f" out); relative L2 distance to the CPU's f64 gradients: card {d_card:.3e}, CPU"
+              f" f32 {d_cpu:.3e} (tolerance 10x the CPU's, 1e-4 at least)")
+        check(f_abs <= 1e-3, f"card {arch} features depart from the CPU path")
+        check(l_wav <= 1e-4, f"card {arch} loss from the audio departs from the CPU path")
+        check(l_rel <= 1e-5, f"card {arch} loss departs from the CPU path")
+        check(s_rel <= 1e-5, f"card {arch} batch-norm statistics depart from the CPU path")
+        check(d_card <= max(10 * d_cpu, 1e-4), f"card {arch} gradients depart from the CPU's")
+
+
+def phase_asv_throughput(np, torch, card):
+    """Full-width ECAPA train steps (512 channels, 192-d, the ArcMargin head
+    over VoxCeleb2 dev's 5994 speakers, SpecAugment on, batch statistics)
+    from a fixed batch of 3 s segments: B=1024 f32, B=1024 bf16 (satpu's
+    policy) and B=128 f32. ms per step and audio-seconds per second (host
+    clock, unprofiled), peak memory, then a profile of as many steps: the
+    step's phases (the trainer's ``asv.<phase>`` ranges), the busy share and
+    the top device items. The profile is informational: nothing read from
+    it can fail."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.sidekit.trainer import PHASES, AsvTrainer, make_asv_optimizer
+
+    rng = np.random.default_rng(7)
+    for dtype, B, iters in (("float32", 1024, 3), ("bfloat16", 1024, 3), ("float32", 128, 8)):
+        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                         num_speakers=ASV_HEAD)
+        trainer = AsvTrainer(model, make_asv_optimizer(model), compute_dtype=dtype)
+        wav = torch.from_numpy((rng.standard_normal((B, 3 * SR)) * 0.1).astype(np.float32)
+                               ).cuda()
+        target = torch.from_numpy(rng.integers(0, ASV_HEAD, B)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(2):  # warm-up: cuDNN's algorithms, the optimizer's state
+            trainer.train_step(wav, target, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics = trainer.train_step(wav, target, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        check(bool(torch.isfinite(metrics["loss"])), f"ASV loss not finite at B={B} {dtype}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                trainer.train_step(wav, target, gen)
+            torch.cuda.synchronize()
+        host, dev = train_split(prof, iters, prefix="asv.", phases=PHASES)
+        rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"[asv-throughput] B={B} x 3 s, {dtype}, ECAPA 512 + ArcMargin over {ASV_HEAD}"
+              f" speakers: {wall * 1e3:.1f} ms/step (host clock), {B * 3.0 / wall:.1f}"
+              f" audio-s/s; peak mem {peak:.2f} GiB [{card}]")
+        print(f"[asv-throughput]   profiled split ms/step, host / device: "
+              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
+              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
+              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
+              f" {sum(r[1] for r in rows)} launches")
+        for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+            print(f"[asv-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
+                  f" x{count:<5d} {key[:90]}")
+        del trainer, model, wav, prof
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1584,6 +1803,10 @@ def main() -> int:
     shc["max_abs_err"] = max(shc["max_abs_err"], gan_shc_err)
     phase_gan_cpu(np, torch)
     phase_gan_throughput(np, torch, card)
+    # ASV training: train_asv (no kernel of its own)
+    phase_asv(np, torch, card)
+    phase_asv_cpu(np, torch)
+    phase_asv_throughput(np, torch, card)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

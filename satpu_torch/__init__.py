@@ -1,6 +1,7 @@
 """satpu_torch — the PyTorch/CUDA port of satpu: anonymization serving,
 LF-MMI chain training of its bottleneck extractor, HiFi-GAN training of its
-generator, and privacy/utility evaluation.
+generator, ASV training of the x-vector privacy judge, and privacy/utility
+evaluation.
 
 A package beside ``satpu`` (the JAX reference, which it never imports) that
 runs the same models with PyTorch on an NVIDIA GPU. Each module mirrors its
@@ -9,7 +10,8 @@ runs the same models with PyTorch on an NVIDIA GPU. Each module mirrors its
 one against it on the same weights and inputs.
 
 - ``satpu_torch.ops``    fbank, CMVN, YAAPT F0 (its SHC band is the
-                         hand-written CUDA kernel ``csrc/shc.cu``).
+                         hand-written CUDA kernel ``csrc/shc.cu``), the
+                         waveform and SpecAugment augmentations.
 - ``satpu_torch.models`` TDNN-F ASR-BN extractor (inference and training),
                          HiFi-GAN generator and discriminators, the
                          anonymizer, and the weight bridge from satpu
@@ -23,12 +25,14 @@ one against it on the same weights and inputs.
 - ``satpu_torch.native`` the C++ lattice decoder (satpu's ``decoder.cc``,
                          built with g++ at first use), bound with ctypes.
 - ``satpu_torch.sidekit`` x-vector models (ECAPA-TDNN, half-ResNet), their
-                         frontends, x-vector extraction and trial scoring.
+                         frontends and training heads, the training data
+                         and trainer, x-vector extraction and trial scoring.
 - ``satpu_torch.utils``  kaldi data dirs, INI/dataclass options,
-                         checkpoints, metrics log, the CUDA build helper,
-                         WER and the kaldi ark writer.
+                         checkpoints, metrics log, learning-rate schedules,
+                         the CUDA build helper, WER and the kaldi ark writer.
 - ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, the
-                         ``train_asr``, ``train_vc`` and ``eval_anon`` CLIs.
+                         ``train_asr``, ``train_vc``, ``train_asv`` and
+                         ``eval_anon`` CLIs.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
 when CUDA is absent rather than falling back. Evaluation on the card:

@@ -15,10 +15,14 @@ holds the optimizer and natural-gradient states.
 Inputs: wav.scp + utt2len in ``train_set``, per-utterance numerator FSTs
 (``fst_scp``), the den graph (``den_fst``) and ``num_pdfs``.
 
+``augmentation`` (inline lenient JSON or a .json path, with its noise and
+RIR databases; ``ops.augment.load_augmentation``) augments every eg of a
+batch on the host.
+
 Not ported yet (they raise NotImplementedError): the dp / spkadv / wav2vec2
 models, the bf16 training policy and transition-id graphs (ROADMAP Queue 1,
-item 11), waveform augmentation (item 13). Multi-device data parallelism
-(item 15) is not ported: one process trains on one device.
+item 11). Multi-device data parallelism (item 15) is not ported: one
+process trains on one device.
 
 Usage (from the repository root):
   python -m satpu_torch.bin.train_asr --config egs/asr/librispeech/configs/tdnnf_vq_48.ini
@@ -96,9 +100,6 @@ def _check_supported(opts: TrainAsrOpts) -> None:
     if opts.compute_dtype != "float32":
         raise NotImplementedError("the bf16 training policy is not ported yet: ROADMAP"
                                   " Queue 1, item 11")
-    if opts.augmentation:
-        raise NotImplementedError("waveform augmentation (ops/augment.py) is not ported"
-                                  " yet: ROADMAP Queue 1, item 13")
 
 
 def main(argv=None) -> int:
@@ -122,14 +123,19 @@ def main(argv=None) -> int:
     from ..chain.objf import DenominatorGraph
     from ..chain.trainer import ChainTrainer, ChainTrainOpts
     from ..models.asrbn import TDNNFNetConfig
+    from ..ops.augment import load_augmentation
     from ..utils.metrics import MetricsWriter
 
     dev = resolve_device(opts.device)
     os.makedirs(opts.dirname, exist_ok=True)
     den = DenominatorGraph.from_fst(Fst.read(opts.den_fst), num_pdfs=opts.num_pdfs)
     norm_fst = opts.normalization_fst or None
+    aug, noise_db, rir_db = load_augmentation(opts.augmentation)
+    if aug:
+        logging.info("augmentation: %s (x%d)", aug.get("pipeline"), aug.get("aug_number", 1))
     ds = EgsDataset(os.path.join(opts.train_set, "wav.scp"), opts.fst_scp,
                     os.path.join(opts.train_set, "utt2len"), normalization_fst=norm_fst,
+                    transform_pipeline=aug, noise_db=noise_db, rir_db=rir_db,
                     trans_mdl=opts.trans_mdl or None)
     removed = ds.filter_min_path()
     logging.info("egs: %d utts (%d removed by min-path check)", len(ds), removed)

@@ -11,17 +11,21 @@ output length (port of ``satpu.chain.dataset``).
 - ``fst_min_path_length``: utterances whose supervision needs more frames
   than the network emits are dropped.
 
-Waveform augmentation (``transform_pipeline``) and transition-id graphs
-(``trans_mdl``) are not ported yet (ROADMAP Queue 1, items 13 and 11).
+With a ``transform_pipeline`` each eg of a batch is augmented
+(``ops.augment.data_augmentation``) from the dataset's ``random.Random(seed)``
+and cut to the batch's length, as satpu's. Transition-id graphs
+(``trans_mdl``) are not ported yet (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
+import random
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ..ops.augment import data_augmentation
 from ..utils import kaldi_data
 from .fst import (Fst, GraphArrays, fst_compose_acceptor, fst_rmepsilon, fst_to_arrays,
                   pad_graph_arrays, read_fst_kaldi)
@@ -70,18 +74,19 @@ class EgsDataset:
     def __init__(self, wav_scp: str, fst_scp: str, utt2len: str,
                  frame_subsampling: int = 3, samples_per_frame: int = 160,
                  transform_pipeline: Optional[Dict] = None,
+                 noise_db=None, rir_db=None, seed: int = 42,
                  normalization_fst: Optional[str] = None,
                  trans_mdl: Optional[str] = None):
-        if transform_pipeline:
-            raise NotImplementedError(
-                "waveform augmentation (ops/augment.py) is not ported yet: ROADMAP Queue 1,"
-                " item 13")
         if trans_mdl:
             raise NotImplementedError(
                 "transition-id graphs (chain/hmm.py trans_mdl) are not ported yet: ROADMAP"
                 " Queue 1, item 11")
         self.samples_per_frame = samples_per_frame
         self.frame_subsampling = frame_subsampling
+        self.transform_pipeline = transform_pipeline
+        self.noise_db, self.rir_db = noise_db, rir_db
+        self.rng = random.Random(seed)
+        self.np_rng = np.random.RandomState(seed)
         self.normalization_fst = Fst.read(normalization_fst) if normalization_fst else None
         self._supervision_cache: Dict[int, GraphArrays] = {}
         utt2wav = kaldi_data.read_wav_scp(wav_scp)
@@ -135,6 +140,9 @@ class EgsDataset:
         wavs = np.zeros((len(egs), T), np.float32)
         for j, e in enumerate(egs):
             x = kaldi_data.load_wav_from_scp(e.wavspec)[0][0][:T]
+            if self.transform_pipeline:
+                x = data_augmentation(x[None, :], self.transform_pipeline, 16000, self.noise_db,
+                                      self.rir_db, rng=self.rng, np_rng=self.np_rng)[0][:T]
             wavs[j, :len(x)] = x
         frames = np.asarray([self.output_frames(e.num_samples) for e in egs], np.int32)
         graphs = pad_graph_arrays([self.supervision_arrays(i) for i in indices])

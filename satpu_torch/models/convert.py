@@ -30,7 +30,12 @@ and the MSD's ``spectral`` collection (``u``, ``v``) keep their names, and
 (``EcapaXVector`` / ``ResNetXVector``): flax scopes ``<name>_<i>``
 (``block_0``, ``convs_3``, ``bns_3``, ``fc_0``, ``attention_4``,
 ``shortcut_1``) become ``<name>.<i>``, and every batch norm's {mean, var}
-becomes running_mean / running_var.
+becomes running_mean / running_var. ``GruPooling``'s flax GRU cells
+``gru_l<k>`` (dense ``ir iz in`` on the input, ``hr hz hn`` on the state,
+kernels [in, out]) become the torch GRU's ``gru.weight_ih_l<k>`` /
+``weight_hh_l<k>`` (gates r, z, n stacked, [3 out, in]) and ``bias_ih_l<k>``
+/ ``bias_hh_l<k>`` (the state's r and z gates have no bias in flax: zeros).
+``ChannelWiseCorrPooling``'s ``proj`` / ``proj_bias`` keep their names.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 _LIST_SCOPE = re.compile(r"^(ups|resblocks|convs1|convs2|convs|discriminators)_(\d+)$")
 _XVECTOR_SCOPE = re.compile(r"^(block|convs|bns|fc|attention|shortcut)_(\d+)$")
+_GRU_CELL = re.compile(r"^gru_l(\d+)$")
 _MID_LAYER = re.compile(r"^tdnnf(\d+)$")
 _AFTER_LAYER = re.compile(r"^tdnnf_after(\d+)$")
 _BN_STAT = {"mean": "running_mean", "var": "running_var"}
@@ -79,8 +85,8 @@ def _hifigan_key(path: Tuple[str, ...]) -> str:
 def _tensor(path: Tuple[str, ...], arr) -> torch.Tensor:
     a = np.array(arr, dtype=np.float32)  # a writable copy
     if path[-1] == "bias" and a.ndim == 2 and a.shape[0] == 1:
-        a = a[0]  # affine bias [1, out] -> [out]
-    return torch.from_numpy(np.ascontiguousarray(a))
+        a = a[0].copy()  # affine bias [1, out] -> [out]
+    return torch.from_numpy(a)  # 0-d stays 0-d (a loss head's scalars)
 
 
 def _modules(variables: Mapping) -> Iterator[Tuple[str, str, Tuple[str, ...], Any]]:
@@ -116,16 +122,40 @@ def from_satpu_discriminators(variables: Mapping) -> Dict[str, torch.Tensor]:
             for path, leaf in _flatten(variables.get(coll) or {})}
 
 
+def _gru_tensors(prefix: str, layer: str, cell: Mapping) -> Dict[str, torch.Tensor]:
+    """One flax GRU cell's dense layers -> the torch GRU's layer ``layer``."""
+    def kernel(g):
+        return np.asarray(cell[g]["kernel"], np.float32).T
+
+    zeros = np.zeros_like(np.asarray(cell["hn"]["bias"], np.float32))
+    arrays = {f"weight_ih_l{layer}": np.concatenate([kernel(g) for g in ("ir", "iz", "in")]),
+              f"weight_hh_l{layer}": np.concatenate([kernel(g) for g in ("hr", "hz", "hn")]),
+              f"bias_ih_l{layer}": np.concatenate([cell[g]["bias"] for g in ("ir", "iz", "in")]),
+              f"bias_hh_l{layer}": np.concatenate([zeros, zeros, cell["hn"]["bias"]])}
+    return {prefix + "gru." + k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in arrays.items()}
+
+
 def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:
     """satpu x-vector variables {params, batch_stats} -> torch state_dict."""
     out = {}
     for coll in ("params", "batch_stats"):
+        cells: Dict[Tuple[str, ...], Dict] = {}
         for path, leaf in _flatten(variables.get(coll) or {}):
             *scopes, name = path
+            gru = [i for i, p in enumerate(scopes) if _GRU_CELL.match(p)]
+            if gru:  # a GruPooling cell: gathered, then stacked below
+                i = gru[0]
+                cell = cells.setdefault(tuple(scopes[:i + 1]), {})
+                cell.setdefault(scopes[i + 1], {})[name] = leaf
+                continue
             if coll == "batch_stats":
                 name = _BN_STAT[name]
             key = ".".join([_XVECTOR_SCOPE.sub(r"\1.\2", p) for p in scopes] + [name])
             out[key] = _tensor(path, leaf)
+        for scopes, cell in cells.items():
+            prefix = "".join(p + "." for p in scopes[:-1])
+            out.update(_gru_tensors(prefix, _GRU_CELL.match(scopes[-1]).group(1), cell))
     return out
 
 

@@ -6,11 +6,19 @@ time. Parameter names follow the reference's torch modules
 ``convs.3``, ``block.2``), so satpu's flax scopes ``<name>_<i>`` map onto
 them one to one (``models.convert.from_satpu_xvector``).
 
-The layers are inference-only: batch norm reads its running statistics
-(eps 1e-5); ASV training is not ported (ROADMAP item 14).
+Batch norm follows the module's mode: batch statistics in training (and
+an update of the running ones), the running statistics in eval.
+
+``autocast(torch.bfloat16)`` is satpu's mixed-precision policy
+(``satpu.models.torchlayers.autocast``): inside it every ``Conv1d``,
+``Conv2d`` and ``Linear`` of this module casts its input, weight and bias to
+bf16, and batch norm computes and returns f32. Everything else
+(pooling arithmetic, the ArcMargin product, losses) keeps its input's dtype.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple, Union
 
@@ -19,9 +27,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+_AUTOCAST: contextvars.ContextVar = contextvars.ContextVar("satpu_torch_autocast",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def autocast(dtype: Optional[torch.dtype]):
+    """Run the block's conv and linear layers in ``dtype`` (None: as is)."""
+    token = _AUTOCAST.set(dtype)
+    try:
+        yield
+    finally:
+        _AUTOCAST.reset(token)
+
+
 class _SatpuInit:
-    """satpu's init for a torch conv or linear layer: weight and bias
-    uniform in +-sqrt(3 / fan_in), drawn from an optional generator."""
+    """satpu's init for a torch conv or linear layer (weight and bias uniform
+    in +-sqrt(3 / fan_in), drawn from an optional generator) and the
+    ``autocast`` policy's casts."""
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -30,22 +53,40 @@ class _SatpuInit:
             if t is not None:
                 t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
 
+    def _cast(self, x: torch.Tensor):
+        """(x, weight, bias) in the policy's compute dtype."""
+        dt = _AUTOCAST.get()
+        if dt is None or not x.is_floating_point():
+            return x, self.weight, self.bias
+        return (x.to(dt), self.weight.to(dt),
+                None if self.bias is None else self.bias.to(dt))
+
 
 class Conv1d(_SatpuInit, nn.Conv1d):
-    pass
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
 
 
 class Conv2d(_SatpuInit, nn.Conv2d):
-    pass
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
 
 
 class Linear(_SatpuInit, nn.Linear):
-    pass
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*self._cast(x))
 
 
 class BatchNorm(nn.Module):
-    """Affine batch norm over dim 1 of [B, C, ...] with the running
-    statistics (eval semantics; buffers ``running_mean`` / ``running_var``)."""
+    """Affine batch norm over dim 1 of [B, C, ...] in its parameters' dtype
+    (f32 unless the module was cast), whatever the input's
+    (``satpu.models.torchlayers.BatchNorm``). In training it
+    normalizes with the biased variance over every other dim and moves the
+    running statistics (buffers ``running_mean`` / ``running_var``) by 0.1
+    towards the batch mean and the unbiased variance; in eval it reads
+    them."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -63,11 +104,9 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("ASV training (batch statistics) is not ported to "
-                                      "satpu_torch yet (ROADMAP item 14); call .eval()")
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        return F.batch_norm(x.to(self.weight.dtype), self.running_mean, self.running_var,
+                            self.weight, self.bias, training=self.training,
+                            momentum=self.momentum, eps=self.eps)
 
 
 class SELayer(nn.Module):

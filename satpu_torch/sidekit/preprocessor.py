@@ -7,15 +7,20 @@ scale without norm, 90-7600 Hz) -> log(+1e-6) -> InstanceNorm CMVN.
 DCT-II -> InstanceNorm. The power spectrum is ``torch.stft``'s; satpu's
 banded-DFT matmuls are a TPU workaround with the same output.
 
-Functions on tensors; output layout [B, n, frames] (channels-first). The
-train-time SpecAugment masking comes with ASV training (ROADMAP item 14).
+Functions on tensors; output layout [B, n, frames] (channels-first).
+``draw_spec_masks`` / ``apply_spec_masks`` are the train-time time and
+frequency masking (satpu's ``spec_masking``, split into its draws and its
+application).
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops import device_array
 
 
 def _hz_to_mel_htk(f):
@@ -79,8 +84,8 @@ def _log_mel(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, n_me
     spec = torch.stft(y, n_fft, hop_length=hop_length, win_length=win_length, window=window,
                       center=True, pad_mode="reflect", return_complex=True)
     mag2 = spec.real ** 2 + spec.imag ** 2  # [B, n_fft // 2 + 1, frames]
-    fb = torch.from_numpy(torchaudio_mel_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels,
-                                                sample_rate)).to(y.device)
+    fb = device_array(torchaudio_mel_fbanks, (n_fft // 2 + 1, f_min, f_max, n_mels,
+                                              sample_rate), y.device).to(y.dtype)
     mel = torch.einsum("bft,fm->bmt", mag2, fb)
     return torch.log(mel + 1e-6)
 
@@ -102,5 +107,37 @@ def mfcc_frontend(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
     [B, n_mfcc, frames]."""
     logmel = _log_mel(x, n_fft, hop_length, win_length, n_mels, sample_rate, f_min, f_max,
                       pre_emph)
-    dct = torch.from_numpy(_dct2_matrix(n_mfcc, n_mels)).to(logmel.device)
+    dct = device_array(_dct2_matrix, (n_mfcc, n_mels), logmel.device).to(logmel.dtype)
     return instance_norm(torch.einsum("bmt,cm->bct", logmel, dct))
+
+
+def draw_spec_masks(B: int, T: int, F: int, generator: Optional[torch.Generator] = None,
+                    time_mask_param: int = 5, freq_mask_param: int = 10
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-utterance (f_len, f_start, t_len, t_start), each [B] int64 on the
+    generator's device, as satpu's ``spec_masking`` draws them
+    (preprocessor.py:216-218,232-235): f_len in [0, freq_mask_param], f_start
+    in [0, max(F - f_len, 1)), t_len in [0, time_mask_param], t_start in
+    [0, max(T - t_len, 1))."""
+    device = generator.device if generator is not None else None
+
+    def below(high: torch.Tensor) -> torch.Tensor:
+        u = torch.rand(B, generator=generator, device=device, dtype=torch.float64)
+        return (u * high).long()
+
+    f_len = torch.randint(0, freq_mask_param + 1, (B,), generator=generator, device=device)
+    f_start = below(torch.clamp(F - f_len, min=1))
+    t_len = torch.randint(0, time_mask_param + 1, (B,), generator=generator, device=device)
+    t_start = below(torch.clamp(T - t_len, min=1))
+    return f_len, f_start, t_len, t_start
+
+
+def apply_spec_masks(x: torch.Tensor, masks) -> torch.Tensor:
+    """Zero each utterance's frequency band [f_start, f_start + f_len) and
+    time band [t_start, t_start + t_len) of [B, F, T] features."""
+    f_len, f_start, t_len, t_start = (m.to(x.device)[:, None] for m in masks)
+    f = torch.arange(x.shape[1], device=x.device)[None, :]
+    t = torch.arange(x.shape[2], device=x.device)[None, :]
+    f_mask = (f >= f_start) & (f < f_start + f_len)  # [B, F]
+    t_mask = (t >= t_start) & (t < t_start + t_len)  # [B, T]
+    return x.masked_fill(f_mask[:, :, None] | t_mask[:, None, :], 0.0)

@@ -1,25 +1,137 @@
-"""ASV evaluation (port of the evaluation half of ``satpu.sidekit.trainer``;
-reference satools/satools/sidekit/objf.py:132-369).
+"""ASV training and evaluation (port of ``satpu.sidekit.trainer``;
+reference satools/satools/sidekit/{model,objf,monitor}.py).
 
+- ``make_asv_optimizer``: one AdamW (betas 0.9 / 0.999, eps 1e-8) with two
+  decay groups, the ArcMargin head (``after_speaker_embedding.*``) at
+  ``head_weight_decay`` and every other parameter at ``weight_decay``
+  (tuning/ecapa_tdnn.py:55-106); elementwise the update of satpu's optax
+  chain;
+- ``AsvTrainer``: the train step (satpu's ``init_asv_state`` +
+  ``make_asv_train_step``): the learning rate set to ``lr_schedule(step)``
+  before the step, the forward in training mode (batch-statistics batch
+  norm, SpecAugment masks from the caller's generator, satpu's bf16 policy
+  with ``compute_dtype="bfloat16"``), the backward, the AdamW step. Its
+  phases are ``torch.profiler.record_function`` ranges ``asv.<phase>``
+  (``PHASES``);
+- ``TrainingMonitor``: patience / best-EER tracking (monitor.py:10-252);
 - ``extract_xvectors``: per-utterance x-vectors on the model's device, full
   utterances one at a time or fixed windows in batches;
 - ``validation_eer``: cosine score matrix with target/non-target masks;
 - ``asv_test``: enrollment speaker means, cosine scoring, EER with its
   bootstrap CI, ROCCH-EER, linkability, Cllr / min-Cllr, and AS-norm when a
   cohort is given.
-
-The train step and ``TrainingMonitor`` come with ASV training (ROADMAP
-item 14).
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import scoring
+from .nn import autocast
+
+PHASES = ("frontend", "forward", "backward", "optimizer")
+HEAD_PREFIX = "after_speaker_embedding."
+
+
+def make_asv_optimizer(model: torch.nn.Module, lr: float = 1e-3, weight_decay: float = 2e-5,
+                       head_weight_decay: float = 2e-4) -> torch.optim.AdamW:
+    """AdamW over ``model``'s parameters in two groups: the ArcMargin head
+    decays at ``head_weight_decay``, the rest (batch-norm affines and biases
+    included) at ``weight_decay``."""
+    named = list(model.named_parameters())
+    head = [p for n, p in named if n.startswith(HEAD_PREFIX)]
+    trunk = [p for n, p in named if not n.startswith(HEAD_PREFIX)]
+    return torch.optim.AdamW([{"params": trunk, "weight_decay": weight_decay},
+                              {"params": head, "weight_decay": head_weight_decay}],
+                             lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+class AsvTrainer:
+    """An x-vector model and its optimizer, on the model's device.
+
+    ``train_step(wav [B, T], target [B], generator)`` runs one step and
+    returns {"loss", "accuracy"} as 0-d tensors, without waiting for them.
+    ``step`` counts the steps taken; ``lr_schedule(step)`` (the optimizer's
+    lr when None) gives each step's learning rate. ``arc_m`` overrides the
+    ArcMargin margin (0.4 to fine-tune)."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 arc_m: Optional[float] = None, compute_dtype: str = "float32"):
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        self.model, self.optimizer = model, optimizer
+        self.lr_schedule, self.arc_m = lr_schedule, arc_m
+        self.cast = torch.bfloat16 if compute_dtype == "bfloat16" else None
+        self.step = 0
+
+    def train_step(self, wav: torch.Tensor, target: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        if self.lr_schedule is not None:
+            lr = self.lr_schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        model = self.model.train()
+        with record_function("asv.frontend"):
+            feats = model.features(wav, generator)
+        with record_function("asv.forward"), autocast(self.cast):
+            x = model.embed(feats)
+            loss, logits = model.after_speaker_embedding(x, target=target, m=self.arc_m)
+        with record_function("asv.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with record_function("asv.optimizer"):
+            self.optimizer.step()
+        self.step += 1
+        accuracy = (logits.argmax(dim=-1) == target).float().mean()
+        return {"loss": loss.detach(), "accuracy": accuracy}
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state and the step: the ``trainer_`` checkpoint."""
+        return {"optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+class TrainingMonitor:
+    """Patience / early-stop and best-EER tracking (monitor.py:10-252), with
+    a plain-dict state for resume."""
+
+    def __init__(self, patience: int = 10):
+        self.patience = patience
+        self.best_eer = float("inf")
+        self.best_epoch = -1
+        self.current_patience = patience
+        self.history: List[Dict[str, float]] = []
+
+    def update(self, epoch: int, eer: float, **extra) -> bool:
+        """Record an epoch; True if it is a new best."""
+        self.history.append({"epoch": epoch, "eer": eer, **extra})
+        if eer < self.best_eer:
+            self.best_eer = eer
+            self.best_epoch = epoch
+            self.current_patience = self.patience
+            return True
+        self.current_patience -= 1
+        return False
+
+    @property
+    def should_stop(self) -> bool:
+        return self.current_patience <= 0
+
+    def state_dict(self) -> Dict:
+        return dict(patience=self.patience, best_eer=self.best_eer,
+                    best_epoch=self.best_epoch, current_patience=self.current_patience,
+                    history=self.history)
+
+    def load_state_dict(self, d: Dict) -> None:
+        self.__dict__.update(d)
 
 
 def extract_xvectors(model, wavs: List[np.ndarray], mode: str = "chunked",

@@ -5,9 +5,15 @@
 - ``ResNetXVector``: PreHalfResNet34 -> AttentivePooling(global context) ->
   256-d embedding -> ArcMargin (tuning/resnet.py:34-76).
 
-``forward(wav, target=None)`` returns ((loss, logits), x_vector) like the
-reference; inference only (train-time SpecAugment and the training heads
-are ROADMAP item 14).
+``forward(wav, target=None, arc_m=None, generator=None)`` returns
+((loss, logits), x_vector) like the reference. In training mode (the
+module's ``.train()``) batch norm uses batch statistics, and with
+``spec_augment`` each utterance's features get a time and a frequency mask
+drawn from ``generator``. ``arc_m`` overrides the ArcMargin margin for the
+call (fine-tuning raises it to 0.4). Run the forward under
+``sidekit.nn.autocast(torch.bfloat16)`` for satpu's bf16 policy: every conv
+and linear layer in bf16 (the pooling's and the embedding's too), batch
+norm, the pooling statistics and the ArcMargin head in f32.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from .archi import PreEcapaTDNN, PreHalfResNet34
 from .loss import ArcMarginProduct, normalize
 from .nn import BatchNorm, Linear
 from .pooling import AttentivePooling, AttentiveStatsPool
-from .preprocessor import mel_spec_frontend, mfcc_frontend
+from .preprocessor import apply_spec_masks, draw_spec_masks, mel_spec_frontend, mfcc_frontend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,17 +57,30 @@ class _XVector(nn.Module):
             raise ValueError(f"unknown frontend {cfg.frontend!r}")
         self.cfg = cfg
 
-    def features(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, T] audio -> [B, n_mels, frames]."""
+    def features(self, wav: torch.Tensor, generator=None) -> torch.Tensor:
+        """[B, T] audio -> [B, n_mels, frames], masked in training mode with
+        ``spec_augment``."""
         if self.cfg.frontend == "mfcc":
-            return mfcc_frontend(wav, n_mfcc=self.cfg.n_mels)
-        return mel_spec_frontend(wav, n_mels=self.cfg.n_mels)
+            x = mfcc_frontend(wav, n_mfcc=self.cfg.n_mels)
+        else:
+            x = mel_spec_frontend(wav, n_mels=self.cfg.n_mels)
+        if self.training and self.cfg.spec_augment:
+            B, F, T = x.shape
+            x = apply_spec_masks(x, draw_spec_masks(B, T, F, generator))
+        return x
 
-    def embed(self, wav: torch.Tensor) -> torch.Tensor:
+    @property
+    def head_dtype(self) -> torch.dtype:
+        """The parameters' dtype, in which pooling and the head run (f32
+        unless the module was cast), whatever the trunk's compute dtype."""
+        return self.after_speaker_embedding.weight.dtype
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """Features -> the embedding before normalization."""
         raise NotImplementedError
 
-    def forward(self, wav: torch.Tensor, target=None, arc_m=None):
-        x = self.embed(wav)
+    def forward(self, wav: torch.Tensor, target=None, arc_m=None, generator=None):
+        x = self.embed(self.features(wav, generator))
         loss, logits = self.after_speaker_embedding(x, target=target, m=arc_m)
         return (loss, logits), normalize(x, dim=1)
 
@@ -77,8 +96,8 @@ class EcapaXVector(_XVector):
         self.after_speaker_embedding = ArcMarginProduct(cfg.embedding_size, cfg.num_speakers,
                                                         s=cfg.arc_s, m=cfg.arc_m)
 
-    def embed(self, wav: torch.Tensor) -> torch.Tensor:
-        x = self.stat_pooling(self.sequence_network(self.features(wav)))
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stat_pooling(self.sequence_network(x).to(self.head_dtype))
         return self.before_speaker_embedding_bn2(self.before_speaker_embedding_lin(x))
 
 
@@ -94,8 +113,8 @@ class ResNetXVector(_XVector):
         self.after_speaker_embedding = ArcMarginProduct(cfg.embedding_size, cfg.num_speakers,
                                                         s=cfg.arc_s, m=cfg.arc_m)
 
-    def embed(self, wav: torch.Tensor) -> torch.Tensor:
-        x = self.stat_pooling(self.sequence_network(self.features(wav)))
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stat_pooling(self.sequence_network(x).to(self.head_dtype))
         return self.before_speaker_embedding_bn_be(self.before_speaker_embedding_lin_be(x))
 
 

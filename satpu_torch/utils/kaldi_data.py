@@ -1,7 +1,8 @@
 """Kaldi-style data-directory IO, dependency-free (the part of
-``satpu.utils.kaldi_data`` that serving needs).
+``satpu.utils.kaldi_data`` that the port's CLIs need).
 
-wav.scp (including piped ``cmd |`` entries), two-column tables, RIFF WAV
+wav.scp (including piped ``cmd |`` entries, and offset reads), two-column
+tables, utt2len / utt2dur (computed and written when missing), RIFF WAV
 decoding (PCM8/16/24/32, float32/64) and PCM16 encoding.
 """
 from __future__ import annotations
@@ -89,9 +90,11 @@ def write_wav(path: str, samples: np.ndarray, rate: int) -> None:
         f.write(wav_bytes(samples, rate))
 
 
-def load_wav_from_scp(entry: str) -> Tuple[np.ndarray, int]:
+def load_wav_from_scp(entry: str, frame_offset: int = 0,
+                      num_frames: int = -1) -> Tuple[np.ndarray, int]:
     """Audio of a wav.scp entry (plain path or piped command ending in ``|``)
-    -> (float32 [C, N], sample rate)."""
+    -> (float32 [C, N], sample rate); with ``frame_offset`` / ``num_frames``
+    (-1: to the end) only those samples."""
     entry = entry.strip()
     if entry.endswith("|"):
         data = subprocess.run(entry[:-1], shell=True, check=True,
@@ -100,6 +103,9 @@ def load_wav_from_scp(entry: str) -> Tuple[np.ndarray, int]:
     else:
         with open(entry, "rb") as f:
             wav, rate = parse_wav_bytes(f.read())
+    if frame_offset or num_frames >= 0:
+        end = frame_offset + num_frames if num_frames >= 0 else wav.shape[1]
+        wav = wav[:, frame_offset:end]
     return wav, rate
 
 
@@ -138,6 +144,20 @@ def gen_utt2len(wav_scp_path: str, out_path: Optional[str] = None) -> Dict[str, 
     if out_path:
         write_keyed_text({k: str(v) for k, v in utt2len.items()}, out_path)
     return utt2len
+
+
+def get_utt2dur(data_dir: str) -> Dict[str, float]:
+    """Seconds per utterance from ``<data_dir>/utt2dur``; computed from
+    wav.scp and written there when the file is missing."""
+    path = os.path.join(data_dir, "utt2dur")
+    if os.path.exists(path):
+        return {k: float(v) for k, v in read_keyed_text(path).items()}
+    utt2dur = {}
+    for utt, entry in read_wav_scp(os.path.join(data_dir, "wav.scp")).items():
+        wav, rate = load_wav_from_scp(entry)
+        utt2dur[utt] = wav.shape[1] / rate
+    write_keyed_text({k: f"{v:.6f}" for k, v in utt2dur.items()}, path)
+    return utt2dur
 
 
 def write_keyed_text(table: Dict[str, str], path: str) -> None:

@@ -43,7 +43,9 @@ def test_cli_import_leaves_jax_unloaded():
             "satpu_torch.bin.eval_anon, satpu_torch.sidekit.xvector, "
             "satpu_torch.chain.decoder, satpu_torch.native, satpu_torch.bin.train_vc, "
             "satpu_torch.hifigan.trainer, satpu_torch.hifigan.dataset, satpu_torch.ops.mel, "
-            "satpu_torch.utils.feature_cache\n"
+            "satpu_torch.utils.feature_cache, satpu_torch.bin.train_asv, "
+            "satpu_torch.sidekit.dataset, satpu_torch.sidekit.trainer, satpu_torch.ops.augment, "
+            "satpu_torch.utils.schedules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -87,4 +89,13 @@ def test_train_vc_defaults_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_vc.main(["--train-set", str(tmp_path / "data"), "--dirname", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()
+
+
+def test_train_asv_defaults_to_cuda(monkeypatch, tmp_path):
+    from satpu_torch.bin import train_asv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_asv.main(["--train-set", str(tmp_path / "data"), "--dirname", str(tmp_path / "exp")])
     assert not (tmp_path / "exp").exists()

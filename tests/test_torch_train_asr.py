@@ -1,11 +1,11 @@
 """The port's ``train_asr`` CLI on the CPU over a tiny chain fixture written
 with the port's own graph code (``prep.write_random_chain_corpus``: den
 graph, numerator FST ark, noise egs): checkpoints, resume, warm start and
-gradient accumulation, the final checkpoint served by ``infer_helper``; the
-egs loader and the bucket sampler against satpu's (the same batches in the
-same order for the same seed, and equal batch arrays); the options the
-slice does not port raise, and so does the default device on a machine
-without a card."""
+gradient accumulation, waveform augmentation, the final checkpoint served
+by ``infer_helper``; the egs loader and the bucket sampler against satpu's
+(the same batches in the same order for the same seed, and equal batch
+arrays, augmented or not); the options the slice does not port raise, and
+so does the default device on a machine without a card."""
 import json
 import os
 
@@ -82,13 +82,25 @@ def test_cli_warm_start_and_gradient_accumulation(fixture, caplog):
 
 @pytest.mark.parametrize("opt", [("--model", "tdnnf_dp"), ("--model", "tdnnf_wav2vec2_vq"),
                                  ("--compute-dtype", "bfloat16"),
-                                 ("--augmentation", '{"pipeline": ["add_noise"]}'),
                                  ("--trans-mdl", "0.trans_mdl")],
-                         ids=["dp", "wav2vec2", "bf16", "augmentation", "trans_mdl"])
+                         ids=["dp", "wav2vec2", "bf16", "trans_mdl"])
 def test_unported_options_raise(fixture, opt):
     exp = os.path.join(fixture["root"], "exp_unported")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_asr.main(_args(fixture, exp, *opt))
+
+
+def test_cli_trains_with_augmentation(fixture, tmp_path):
+    """--augmentation with noise and RIR databases that the test writes (the
+    .json beside each named csv, as satpu's load_augmentation reads them)."""
+    from augment_fixture import write_aug_dbs
+
+    aug = write_aug_dbs(str(tmp_path))
+    exp = os.path.join(fixture["root"], "exp_aug")
+    assert train_asr.main(_args(fixture, exp, "--num-epochs", "1", "--augmentation",
+                                aug["inline"])) == 0
+    assert _steps(exp) == [1, 2, 3]
+    assert os.path.exists(os.path.join(exp, "final.ckpt"))
 
 
 @pytest.mark.parametrize("opts", [
@@ -156,3 +168,33 @@ def test_egs_and_bucket_sampler_match_satpu(fixture, tmp_path):
     assert u == ju and set(g) == set(jg)
     for k in g:
         np.testing.assert_array_equal(g[k], jg[k], err_msg=k)
+
+
+def test_augmented_egs_batches_match_satpu(fixture, tmp_path):
+    """EgsDataset.load_batch with every augmentation key (two a eg) from the
+    same seed: the same augmented batch arrays as satpu's, bit for bit, over
+    every batch of two epochs (the dataset's random.Random carries over)."""
+    from augment_fixture import write_aug_dbs
+    from satpu.chain.dataset import EgsDataset as JEgs
+    from satpu.ops.augment import load_augmentation as jload
+    from satpu_torch.chain.dataset import BucketBatchSampler, EgsDataset
+    from satpu_torch.ops.augment import load_augmentation
+
+    aug = write_aug_dbs(str(tmp_path))["inline"]
+    data = fixture["data"]
+    args = (os.path.join(data, "wav.scp"), fixture["fst_scp"], os.path.join(data, "utt2len"))
+    tp, noise_db, rir_db = load_augmentation(aug)
+    assert (tp, noise_db, rir_db) == jload(aug)
+    ds = EgsDataset(*args, transform_pipeline=tp, noise_db=noise_db, rir_db=rir_db, seed=7)
+    jds = JEgs(*args, transform_pipeline=tp, noise_db=noise_db, rir_db=rir_db, seed=7)
+    sampler = BucketBatchSampler(ds, 2, seed=3)
+    n = 0
+    for epoch in range(2):
+        sampler.set_epoch(epoch)
+        for batch in sampler:
+            w, jw = ds.load_batch(batch)[0], jds.load_batch(batch)[0]
+            np.testing.assert_array_equal(w, jw)
+            n += 1
+    assert n == 6
+    plain = EgsDataset(*args).load_batch(batch)[0]
+    assert not np.array_equal(plain, w)  # the batch was augmented
