@@ -75,7 +75,29 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     head over 5994 speakers, B=1024 f32, B=1024 bf16 and B=128 f32: ms per
     step, audio-seconds per second, peak memory, then a profile of as many
     steps: the ``asv.<phase>`` split, the busy share and the top device
-    items.
+    items;
+19. fbank: the port's fbank (+ CMVN) on the card against the CPU on the
+    slice phase's anonymized wavs and its voiced inputs, both against the
+    same fbank in f64 on the host;
+20. w2v2-train: the ``prepare_data`` CLI (prepare_data.ini: grapheme
+    lexicon, speed perturbation) over 32 voiced utterances of 3 s, then the
+    ``train_asr`` CLI with egs/asr/librispeech/configs/
+    tdnnf_wav2vec2_vq_48.ini at full width (wav2vec2 large, TDNN-F 1024,
+    VQ-48, B=16, f32, NG on) for 4 steps on prepare_data's den graph,
+    normalization FST and egs: the logged objf, K2f/K2b launched every step,
+    final.ckpt served on the card by ``infer_helper.load_model`` with
+    finite ``extract_bn`` features and VQ indices in range; then 2 steps
+    each of the same net under the bf16 training policy and of
+    tdnnf_spkadv.ini;
+21. w2v2-cpu: one tiny wav2vec2-VQ step and one tiny speaker-adversarial
+    step on the card against the port's CPU path (loss, gradients in
+    relative L2, batch-norm statistics);
+22. w2v2-throughput: full-width B5 train steps from a fixed batch of B=16 x
+    3 s at 3280 pdfs on the 1641-state den graph, f32 and bf16: ms per
+    step, audio-seconds per second, peak memory, the ``chain.<phase>``
+    split, busy share and top device items; K2f/K2b held against their
+    plain versions on this net's chain output (bitwise on repeat, one
+    launch a call) and timed against their bound.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -87,6 +109,7 @@ file from that tree's root).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -136,6 +159,11 @@ GAN_SEGMENT, GAN_DEV = 16320, 32
 # 16 synthetic speakers; the throughput head spans VoxCeleb2 dev's speakers
 ASV_CONFIG = "egs/asv/voxceleb/configs/ecapa.ini"
 ASV_SPEAKERS, ASV_HEAD = 16, 5994
+# the ASR-BN variants: chain data prep and the B5 extractor's recipe (wav2vec2
+# large + TDNN-F 1024 + VQ-48), and the speaker-adversarial net's
+W2V2_PREP_CONFIG = "egs/asr/librispeech/configs/prepare_data.ini"
+W2V2_CONFIG = "egs/asr/librispeech/configs/tdnnf_wav2vec2_vq_48.ini"
+SPKADV_CONFIG = "egs/asr/librispeech/configs/tdnnf_spkadv.ini"
 
 
 def check(ok: bool, what: str) -> None:
@@ -1757,6 +1785,405 @@ def phase_asv_throughput(np, torch, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# ASR-BN variants: chain data prep and the wav2vec2 / speaker-adversarial nets
+# ---------------------------------------------------------------------------
+
+
+def fbank_f64(torch, x):
+    """The port's fbank (``ops.fbank.fbank``, 80 bins, snip_edges False) in
+    f64 on the host, the same steps and constants: (log-mel [m, 80], mel
+    energies [m, 80], each frame's total spectral power [m])."""
+    from satpu_torch.ops.fbank import LOG_EPS, PREEMPHASIS, _povey_window, frame_signal, mel_banks
+
+    w = torch.from_numpy(x).double()[None] * 32768.0
+    frames = frame_signal(w, 400, 160, False)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+    frames = (frames - PREEMPHASIS * prev) * torch.from_numpy(_povey_window(400)).double()
+    spec = torch.fft.rfft(frames, n=512)
+    power = spec.real ** 2 + spec.imag ** 2
+    mel = power @ torch.from_numpy(mel_banks(80, 512, 16000.0)).double().T
+    return torch.log(torch.clamp(mel, min=LOG_EPS))[0], mel[0], power.sum(-1)[0]
+
+
+def fbank_cmvn_check(np, torch):
+    """The port's fbank (+ utterance CMVN, as ``TDNNFNet.features`` runs them)
+    on the card against the CPU, f32, utterance by utterance, on the slice
+    phase's anonymized wavs and its voiced inputs; both against the same
+    fbank in f64 on the host. A mel bin whose energy is a small share of its
+    frame's spectral power holds f32 rounding amplified by the log (a share
+    r rounds to about eps32 / sqrt(r) in the log), and cuFFT and the host's
+    FFT round differently. The card is held to 10 times the CPU f32's own
+    largest departure from f64 (and 1e-3 at least): then a card-CPU gap
+    above the 1e-3 parity bound is rounding, not a fault. Prints where the
+    gaps above 1e-3 lie (the largest energy share among their bins)."""
+    from satpu_torch.ops.cmvn import utt_cmvn
+    from satpu_torch.ops.fbank import fbank
+    from satpu_torch.utils import kaldi_data
+
+    for name, d in (("anonymized", "data_anon"), ("voiced input", "data")):
+        scp = kaldi_data.read_wav_scp(os.path.join(WORK, d, "wav.scp"))
+        gap = card64 = cpu64 = cmvn_gap = 0.0
+        n_far, share_far, at = 0, 0.0, ""
+        for utt in sorted(scp):
+            x = kaldi_data.load_wav_from_scp(scp[utt])[0][0]
+            f = {dev: fbank(torch.from_numpy(x).to(dev)[None] * 32768.0, num_mel_bins=80,
+                            snip_edges=False)[0] for dev in ("cuda", "cpu")}
+            c = {dev: utt_cmvn(v[None])[0].cpu() for dev, v in f.items()}
+            f = {dev: v.cpu().double() for dev, v in f.items()}
+            f64, mel, total = fbank_f64(torch, x)
+            diff = (f["cuda"] - f["cpu"]).abs()
+            if float(diff.max()) > gap:
+                t, b = divmod(int(diff.argmax()), 80)
+                gap, at = float(diff.max()), f"{utt} frame {t} bin {b}"
+            card64 = max(card64, float((f["cuda"] - f64).abs().max()))
+            cpu64 = max(cpu64, float((f["cpu"] - f64).abs().max()))
+            cmvn_gap = max(cmvn_gap, float((c["cuda"] - c["cpu"]).abs().max()))
+            far = diff > 1e-3
+            n_far += int(far.sum())
+            if far.any():
+                share = mel / total[:, None].clamp_min(1e-300)
+                share_far = max(share_far, float(share[far].max()))
+        print(f"[fbank] {name} ({len(scp)} utterances): fbank card vs CPU max abs diff {gap:.3e}"
+              f" ({at}), after CMVN {cmvn_gap:.3e} (parity bound 1e-3); against f64 on the host:"
+              f" card {card64:.3e}, CPU f32 {cpu64:.3e} (tolerance 10x the CPU's, 1e-3 at"
+              f" least); {n_far} entries differ by more than 1e-3, their bins' largest share"
+              f" of the frame's power {share_far:.3e}")
+        check(card64 <= max(10 * cpu64, 1e-3),
+              f"the card's fbank departs from f64 more than the CPU's on the {name} wavs")
+
+
+W2V2_WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel",
+              "india", "juliet", "kilo", "lima"]
+
+
+def w2v2_data_dir(np, root: str) -> str:
+    """A kaldi data dir of 32 voiced utterances of 3 s (F0 90-245 Hz, 8
+    speakers) whose text is 3-6 words of ``W2V2_WORDS``. One length: the
+    speed perturbation's allowed lengths are then 48000 and 48480 samples,
+    the 0.9 copies land on the second, the 1.1 copies on none, and the egs
+    fill two length buckets of about 30 (4 steps of B=16)."""
+    from satpu_torch.utils import kaldi_data
+
+    rng = np.random.default_rng(40)
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    wav_scp, text, utt2spk = {}, {}, {}
+    for i in range(32):
+        utt = f"w{i % 8}-u{i:02d}"
+        x = voiced_utterance(np, EG_SECONDS, 90.0 + 5 * i, seed=700 + i)[0]
+        wav_scp[utt] = os.path.join(data, f"{utt}.wav")
+        kaldi_data.write_wav(wav_scp[utt], x, SR)
+        text[utt] = " ".join(rng.choice(W2V2_WORDS, int(rng.integers(3, 7))))
+        utt2spk[utt] = f"w{i % 8}"
+    kaldi_data.write_keyed_text(wav_scp, os.path.join(data, "wav.scp"))
+    kaldi_data.write_keyed_text(text, os.path.join(data, "text"))
+    kaldi_data.write_keyed_text(utt2spk, os.path.join(data, "utt2spk"))
+    return data
+
+
+def train_asr_cli(torch, config: str, args, env):
+    """train_asr.main on ``config`` with the ini's [var] entries given by the
+    environment ``env`` (as a user sets them); returns (rc, wall seconds, den
+    kernel launches, logged metrics)."""
+    from satpu_torch.bin import train_asr
+    from satpu_torch.chain import den_fb
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = train_asr.main(["--config", os.path.join(ROOT, config)] + list(args))
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launches = {"den_fb_forward": den_fb.den_fb_forward.launches,
+                "den_fb_backward": den_fb.den_fb_backward.launches}
+    with open(os.path.join(env["exp"], "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    return rc, wall, launches, logged
+
+
+def phase_w2v2_train(np, torch, card):
+    """The prepare_data -> train_asr path of egs/asr/librispeech/configs/
+    tdnnf_wav2vec2_vq_48.ini at full width: prepare_data (prepare_data.ini:
+    grapheme lexicon, speed perturbation, 12 allowed lengths) over 32 voiced
+    utterances, then the train_asr CLI with the ini (wav2vec2 large, TDNN-F
+    1024 [3,3,3] / [1,3,3,3], VQ-48, NG on, B=16, f32; random init instead
+    of the ini's warm start, the prepared tree's pdfs) for one epoch of 4
+    steps with held-out diagnostics every step. Checks the logged objf, that
+    every step launched K2f and K2b, and that final.ckpt loads through
+    ``infer_helper.load_model`` on the card as ``asrbn_tdnnf_wav2vec2`` and
+    gives finite ``extract_bn`` features whose VQ indices lie in the
+    codebook. Then 2 steps each of the same net under the bf16 training
+    policy and of tdnnf_spkadv.ini (B=32, one batch a length bucket).
+    Returns the den kernels' launches over the 4-step run."""
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import prepare_data
+    from satpu_torch.models.asrbn import wav2vec2_output_num_frames
+
+    root = os.path.join(WORK, "w2v2")
+    data = w2v2_data_dir(np, root)
+    prep = os.path.join(root, "prep")
+    t0 = time.perf_counter()
+    rc = prepare_data.main(["--config", os.path.join(ROOT, W2V2_PREP_CONFIG),
+                            "--data-dir", data, "--out-dir", prep])
+    check(rc == 0, f"prepare_data exited {rc}")
+    with open(os.path.join(prep, "num_pdfs")) as f:
+        num_pdfs = int(f.read())
+    lengths = sorted(set(open(os.path.join(prep, "egs", "utt2len")).read().split()[1::2]))
+    n_egs = len(open(os.path.join(prep, "egs", "wav.scp")).read().splitlines())
+    print(f"[w2v2-train] prepare_data ({W2V2_PREP_CONFIG}) over 32 voiced utterances of"
+          f" {EG_SECONDS} s in {time.perf_counter() - t0:.1f} s: {n_egs} egs at lengths"
+          f" {lengths}, {num_pdfs} pdfs, den.fst, normalization.fst, numerators, HCLG.fst")
+
+    exp = os.path.join(root, "exp")
+    rc, wall, launches, logged = train_asr_cli(
+        torch, W2V2_CONFIG, ["--num-pdfs", str(num_pdfs), "--init-weight-model", "",
+                             "--num-epochs", "1", "--diagnostics-interval", "1"],
+        {"prep": prep, "exp": exp})
+    check(rc == 0, f"train_asr exited {rc}")
+    steps = [r["step"] for r in logged]
+    print(f"[w2v2-train] train_asr on cuda ({W2V2_CONFIG}: wav2vec2 large, TDNN-F 1024, VQ-48,"
+          f" {num_pdfs} pdfs, NG on, B=16, f32) {len(steps)} steps + held-out diagnostics"
+          f" every step in {wall:.1f} s (first call, cold); den kernel launches {launches}"
+          f" [{card}]")
+    check(steps == [1, 2, 3, 4], f"steps logged: {steps}")
+    check(all(n >= len(steps) for n in launches.values()),
+          f"a den kernel was not launched once a step: {launches}")
+    for r in logged:
+        check(all(np.isfinite(r[k]) for k in ("chain_objf", "loss", "valid_objf", "vq_loss")),
+              f"objf not finite at step {r['step']}: {r}")
+        print(f"[w2v2-train]   step {r['step']}: objf {r['chain_objf']:.4f} (num"
+              f" {r['num_logprob']:.3f}, den {r['den_logprob']:.3f}), loss {r['loss']:.4f},"
+              f" vq_loss {r['vq_loss']:.4f}, perplexity {r['vq_perplexity']:.2f}, valid objf"
+              f" {r['valid_objf']:.4f}, lr {r['lr']:.7f}")
+
+    model, meta = infer_helper.load_model(os.path.join(exp, "final.ckpt"), device="cuda")
+    c, w = model.cfg, model.w2v2
+    check(meta["model_id"] == "asrbn_tdnnf_wav2vec2"
+          and (w.hidden_size, w.num_hidden_layers, c.hidden_dim, c.codebook_size)
+          == (1024, 24, 1024, 48), f"final.ckpt: {meta['model_id']} {c} {w}")
+    n_params = sum(p.numel() for p in model.parameters())
+    x = voiced_utterance(np, EG_SECONDS, 140.0, seed=9)[0]
+    with torch.inference_mode():
+        bn = model.eval().extract_bn(torch.from_numpy(x)[None].cuda())
+        idx = model.tdnnfs[-1].tdnn.bottleneck_func.vq(bn.transpose(1, 2))[3]
+    check(bool(torch.isfinite(bn).all()) and bn.shape[-1] == c.prefinal_bottleneck_dim,
+          f"extract_bn {tuple(bn.shape)}")
+    check(0 <= int(idx.min()) and int(idx.max()) < c.codebook_size, "VQ indices out of range")
+    t_out = wav2vec2_output_num_frames(len(x), c, w)
+    print(f"[w2v2-train] final.ckpt loads on cuda as asrbn_tdnnf_wav2vec2 ({n_params / 1e6:.1f}"
+          f" M weights); extract_bn on {EG_SECONDS} s: finite {list(bn.shape)}, VQ indices"
+          f" {sorted(set(idx.flatten().tolist()))} of {c.codebook_size}; the net's chain frames"
+          f" for {len(x)} samples {t_out} (the egs' count {((len(x) + 80) // 160 - 2) // 3})")
+    del model
+
+    for name, config, extra in (
+            ("tdnnf_wav2vec2_vq bf16", W2V2_CONFIG, ["--compute-dtype", "bfloat16",
+                                                      "--init-weight-model", ""]),
+            ("tdnnf_spkadv", SPKADV_CONFIG, [])):
+        exp2 = os.path.join(root, name.split()[0] + ("_bf16" if "bf16" in name else ""))
+        rc, wall, runs, logged = train_asr_cli(
+            torch, config, ["--num-pdfs", str(num_pdfs), "--num-epochs", "1",
+                            "--minibatch-size", "32", "--diagnostics-interval", "1"] + extra,
+            {"prep": prep, "exp": exp2})
+        check(rc == 0, f"train_asr {name} exited {rc}")
+        check([r["step"] for r in logged] == [1, 2], f"{name}: steps {logged}")
+        check(all(n >= 2 for n in runs.values()), f"{name}: den kernel launches {runs}")
+        for r in logged:
+            check(all(np.isfinite(v) for v in r.values()), f"{name}: not finite: {r}")
+        keys = ("chain_objf", "loss", "vq_loss", "spkadv_loss", "spkadv_accuracy")
+        print(f"[w2v2-train] train_asr {name} (B=32, full width) 2 steps in {wall:.1f} s"
+              f" (cold): " + "; ".join(", ".join(f"{k} {r[k]:.4f}" for k in keys if k in r)
+                                       for r in logged) + f"; den kernel launches {runs}")
+        _, meta = infer_helper.load_model(os.path.join(exp2, "final.ckpt"), device="cuda")
+        check(meta["model_id"] == ("asrbn_tdnnf_spkadv" if "spkadv" in name
+                                   else "asrbn_tdnnf_wav2vec2"), f"{name}: {meta['model_id']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def w2v2_tiny(infer_helper, kind: str):
+    """The w2v2-cpu phase's tiny nets (random weights from seed 0, dropout
+    0, NG on): (model_id, build params)."""
+    net = dict(output_dim=40, hidden_dim=32, bottleneck_dim=16, prefinal_bottleneck_dim=16,
+               p_dropout=0.0, natural_gradient=True)
+    if kind == "wav2vec2":
+        return "asrbn_tdnnf_wav2vec2", dict(
+            net, bottleneck="vq", codebook_size=8, kernel_size_list=[3, 3, 3],
+            subsampling_factor_list=[1, 1, 1],
+            wav2vec2=dict(conv_dim=[32] * 7, hidden_size=64, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=128,
+                          num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4))
+    return "asrbn_tdnnf_spkadv", dict(net, num_speakers=4)
+
+
+def phase_w2v2_cpu(np, torch):
+    """One tiny train step on the card against the port's CPU path, f32 with
+    TF32 off, for a wav2vec2-VQ net (the real 7-conv front at 32 channels,
+    hidden 64, 2 layers) and a speaker-adversarial net (its half-ResNet
+    branch), from the same weights, NG states and batch (B=4 x 1 s over the
+    5-phone den graph): the loss, the gradients of all tensors together in
+    relative L2, and the batch-norm statistics after the step. The
+    train-mode nets are ill-conditioned at f32 (a VQ, batch norms over the
+    batch, ReLUs within rounding of zero), so each quantity is held against
+    the CPU's f64 step to 10 times the CPU f32's own departure from it (and
+    1e-4 at least), as the asv-cpu phase holds the half-ResNet."""
+    import copy
+
+    from satpu_torch import infer_helper
+    from satpu_torch.chain.fst import fst_rmepsilon, fst_to_arrays, pad_graph_arrays
+    from satpu_torch.chain.objf import DenominatorGraph, graphs_to_torch
+    from satpu_torch.chain.prep import numerator_fst, random_bigram_den, random_phone_walk
+    from satpu_torch.chain.trainer import ChainTrainer
+
+    fst, tree, trans = random_bigram_den(5, 3, seed=2)
+    den = DenominatorGraph.from_fst(fst, tree.num_pdfs)
+    rng = np.random.default_rng(8)
+    wav = np.stack([voiced_utterance(np, 1.0, 110.0 + 30 * k, seed=60 + k)[0]
+                    for k in range(4)])
+    frames = np.full(4, ((16000 + 80) // 160 - 2) // 3, np.int32)
+    graphs = pad_graph_arrays([fst_to_arrays(fst_rmepsilon(numerator_fst(
+        random_phone_walk(trans, int(frames[0]) // 3, rng), tree))) for _ in range(4)])
+    target = np.array([0, 1, 2, 3])
+    for kind in ("wav2vec2", "spkadv"):
+        model_id, params = w2v2_tiny(infer_helper, kind)
+        base = infer_helper.build_model(model_id, device="cpu", seed=0, **params)
+        out = {}
+        for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                           ("cuda", torch.float32)):
+            model = copy.deepcopy(base).to(dev, dtype)
+            trainer = ChainTrainer(model, den, seed=0)
+            kw = {"spk_target": torch.from_numpy(target).to(dev)} if kind == "spkadv" else {}
+            loss, m = trainer.compute_grads(torch.from_numpy(wav).to(dev),
+                                            graphs_to_torch(graphs, dev),
+                                            torch.from_numpy(frames).to(dev), **kw)
+            out[dev, dtype] = (float(loss), {n: p.grad.cpu().double()
+                                              for n, p in model.named_parameters()},
+                               {k: v.cpu().double() for k, v in model.state_dict().items()
+                                if "running" in k})
+        ref = out["cpu", torch.float64]
+
+        def departs(o):
+            l_rel = abs(o[0] - ref[0]) / abs(ref[0])
+            g = (sum(float(((o[1][k] - ref[1][k]) ** 2).sum()) for k in ref[1]) ** 0.5
+                 / sum(float((v ** 2).sum()) for v in ref[1].values()) ** 0.5)
+            s = max(float((o[2][k] - ref[2][k]).abs().max() / ref[2][k].abs().max()
+                          .clamp_min(1e-30)) for k in ref[2])
+            return l_rel, g, s
+
+        own, card = departs(out["cpu", torch.float32]), departs(out["cuda", torch.float32])
+        print(f"[w2v2-cpu] tiny {kind} step, f32, TF32 off, B=4 x 1 s: against the CPU's f64"
+              f" step, loss rel card {card[0]:.3e} / CPU f32 {own[0]:.3e}; gradients in relative"
+              f" L2 over {len(ref[1])} tensors card {card[1]:.3e} / CPU f32 {own[1]:.3e};"
+              f" batch-norm statistics max rel card {card[2]:.3e} / CPU f32 {own[2]:.3e}"
+              f" (tolerance 10x the CPU f32's, 1e-4 at least)")
+        for what, c_, o_ in zip(("loss", "gradients", "batch-norm statistics"), card, own):
+            check(c_ <= max(10 * o_, 1e-4), f"card {kind} {what} depart from the CPU path")
+
+
+def phase_w2v2_throughput(np, torch, fx, card):
+    """Full-width train steps of the B5 extractor (wav2vec2 large + TDNN-F
+    1024 + VQ-48, NG on, the front's 1/20 update factor) from a fixed batch
+    of B=16 x 3 s (the ini's batch) at 3280 pdfs on the 1641-state den
+    graph, in f32 and bf16: ms per step, audio-seconds per second (host
+    clock, unprofiled), peak memory, then a profile of as many steps for the
+    ``chain.<phase>`` split, the busy share, the top device items and one
+    den kernel a den call (the trace's den_fwd / den_bwd items over the
+    wrappers' calls). K2f and K2b are held against their plain versions on
+    this net's chain output at this path's T, bitwise on repeat, and timed
+    against their bound. Returns the den kernels' largest errors."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.chain import den_fb
+    from satpu_torch.chain.fst import Fst
+    from satpu_torch.chain.objf import DenominatorGraph
+    from satpu_torch.chain.trainer import ChainTrainer, ChainTrainOpts
+    from satpu_torch.models.asrbn import wav2vec2_tdnnf_config
+    from satpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
+    g = den.tensors("cuda")
+    lk = den_fb.leak_log(1e-5)
+    B = 16
+    wav = torch.from_numpy(np.stack([voiced_utterance(np, EG_SECONDS, 95.0 + 9 * k,
+                                                      seed=900 + k)[0] for k in range(B)])).cuda()
+    _, graphs, frames = chain_batch(torch, fx, B, "cuda")
+    errs = (0.0, 0.0)
+    for dtype, iters in (("float32", 4), ("bfloat16", 4)):
+        params = dict(dataclasses.asdict(wav2vec2_tdnnf_config(NUM_PDFS, "vq", 48)),
+                      natural_gradient=True, compute_dtype=dtype,
+                      wav2vec2=dataclasses.asdict(Wav2Vec2Config.large()))
+        model = infer_helper.build_model("asrbn_tdnnf_wav2vec2", device="cuda", seed=0, **params)
+        trainer = ChainTrainer(model, den, ChainTrainOpts(lr=3e-4, compute_dtype=dtype),
+                               lr_schedule=lambda step: 3e-4,
+                               preprocessor_schedule=lambda step: 1.0 / 20.0)
+        for _ in range(2):  # warm-up (the first is an NG subspace-update step)
+            trainer.step(wav, graphs, frames)
+        if dtype == "float32":
+            # K2f/K2b on this net's chain output at this path's T
+            with torch.no_grad():
+                co = model.train()(wav, generator=trainer.generator)[0].float()
+            e_f, e_b, llf, lls, _ = den_check(torch, den_fb, g, co, lk,
+                                              f"wav2vec2 chain_out (T={co.shape[1]})")
+            errs = (e_f, e_b)
+            den_timing(torch, den_fb, g, llf, lls, lk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics = trainer.step(wav, graphs, frames)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        check(bool(torch.isfinite(metrics["loss"])), f"w2v2 loss not finite, {dtype}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                trainer.step(wav, graphs, frames)
+            torch.cuda.synchronize()
+        host, dev = train_split(prof, iters)
+        rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e3
+        # one device kernel a den call: den_fwd / den_bwd items in the trace of
+        # these steps over the wrappers' calls in them (a short trace of a
+        # few calls has come back empty on the card late in this script)
+        kernels = [sum(r[1] for r in rows if name in r[2]) for name in ("den_fwd", "den_bwd")]
+        calls = [den_fb.den_fb_forward.launches // iters, den_fb.den_fb_backward.launches // iters]
+        print(f"[w2v2-throughput] den kernels a step in the trace: K2f {kernels[0]}, K2b"
+              f" {kernels[1]}, for {calls[0]} and {calls[1]} wrapper calls a step")
+        check(calls[0] > 0 and kernels == calls,
+              f"a den kernel call is not one launch: {kernels} kernels, {calls} calls a step")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[w2v2-throughput] B={B} x {EG_SECONDS} s, tdnnf_wav2vec2_vq (wav2vec2 large +"
+              f" TDNN-F 1024 + VQ-48, {n_params / 1e6:.1f} M weights, {NUM_PDFS} pdfs), NG on,"
+              f" {dtype}: {wall * 1e3:.1f} ms/step (host clock), {B * EG_SECONDS / wall:.1f}"
+              f" audio-s/s; peak mem {peak:.2f} GiB [{card}]")
+        print(f"[w2v2-throughput]   profiled split ms/step, host / device: "
+              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
+              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
+              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
+              f" {sum(r[1] for r in rows)} launches")
+        for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+            print(f"[w2v2-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
+                  f" x{count:<5d} {key[:90]}")
+        del trainer, model, prof
+        torch.cuda.empty_cache()
+    return errs
+
+
 def main() -> int:
     import torch
 
@@ -1807,6 +2234,19 @@ def main() -> int:
     phase_asv(np, torch, card)
     phase_asv_cpu(np, torch)
     phase_asv_throughput(np, torch, card)
+    # the card's fbank on the slice phase's near-constant anonymized output
+    fbank_cmvn_check(np, torch)
+    # ASR-BN variants: prepare_data -> train_asr of the B5 extractor (K2f, K2b)
+    w2v2_launches = phase_w2v2_train(np, torch, card)
+    phase_w2v2_cpu(np, torch)
+    w2v2_errs = phase_w2v2_throughput(np, torch, fx, card)
+    for entry, err in zip((e for e in entries if e["name"].startswith("den_fb")), w2v2_errs):
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    print("[kernels] den kernel launches by path: " + ", ".join(
+        f"{name} train_asr tdnnf_vq {launches[name]}, tdnnf_wav2vec2_vq {w2v2_launches[name]}"
+        for name in w2v2_launches) + " (their sums in the kernels line)")
+    for name, n in w2v2_launches.items():
+        launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

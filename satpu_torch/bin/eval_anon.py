@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import logging
 import os
@@ -79,6 +80,9 @@ def evaluate_asr(opts) -> dict:
     from .pipeline import DEFAULT_BUCKETS, _start_host_copy, _to_device, bucket_for
 
     model, _ = infer_helper.load_model(opts.asr_checkpoint, device=opts.device)
+    # the fbank nets mask a padded batch by its lengths; the wav2vec2 net
+    # takes none (as in satpu)
+    takes_len = "lengths" in inspect.signature(model.forward).parameters
     device = next(model.parameters()).device
     graph = Fst.read(opts.decode_graph)
     words = read_words_txt(opts.words_txt) if opts.words_txt else None
@@ -168,7 +172,7 @@ def evaluate_asr(opts) -> dict:
                 wav_b[j, : len(w)] = w
                 lens[j] = len(w)
             wav_t, lens_t = (_to_device(torch.from_numpy(a), device) for a in (wav_b, lens))
-            chain_out = model(wav_t, lens_t)[0].float()
+            chain_out = (model(wav_t, lens_t) if takes_len else model(wav_t))[0].float()
             # decode the PREVIOUS batch while the device computes this one
             if in_flight is not None:
                 submit(*in_flight)

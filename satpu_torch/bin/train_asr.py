@@ -1,31 +1,44 @@
-"""LF-MMI (chain) training of the TDNN-F ASR-BN extractor (port of
+"""LF-MMI (chain) training of the ASR-BN extractors (port of
 ``satpu.bin.train_asr``).
 
-Trains ``tdnnf`` or ``tdnnf_vq`` on one device (``--device``, CUDA unless
-``--device cpu``): natural-gradient preconditioning on by default, an
-exponential learning-rate decay from ``lr_initial`` to ``lr_final``,
-gradient accumulation, resume from the latest trainer checkpoint, periodic
-diagnostics (and a valid-set objf when ``valid_set``/``valid_fst_scp`` are
-given), warm start from ``init_weight_model``, and the final combination
-(the best-valid average of the last checkpoints). Checkpoints
-``<steps>.ckpt`` / ``final.ckpt`` are ``asrbn_tdnnf`` models that
-``satpu_torch.infer_helper.load_model`` serves; ``trainer_<steps>.ckpt``
-holds the optimizer and natural-gradient states.
+Trains on one device (``--device``, CUDA unless ``--device cpu``):
 
-Inputs: wav.scp + utt2len in ``train_set``, per-utterance numerator FSTs
-(``fst_scp``), the den graph (``den_fst``) and ``num_pdfs``.
+- ``tdnnf`` / ``tdnnf_vq`` / ``tdnnf_dp``: the fbank TDNN-F with no, a VQ
+  (``codebook_size``) or a Laplace DP (``dp_epsilon``) bottleneck;
+- ``tdnnf_spkadv``: the TDNN-F with a speaker-adversarial x-vector branch
+  on its bottleneck (targets from the train set's utt2spk; ``adversarial``
+  switches the gradient reversal, ``freeze_encoder`` is the train_asi
+  phase: the trunk below the prefinal heads takes no update);
+- ``tdnnf_wav2vec2`` / ``_vq`` / ``_dp``: the wav2vec2-fronted net
+  (``wav2vec2_size`` large or base; random init, or a warm start from
+  ``init_weight_model``), whose front's updates are scaled by 1/20 for the
+  first 10% of the steps, 1/5 until 90% and 0 after.
+
+Natural-gradient preconditioning is on by default; an exponential
+learning-rate decay from ``lr_initial`` to ``lr_final``; gradient
+accumulation; ``compute_dtype = bfloat16`` (satpu's bf16 training
+policy); ``trans_mdl`` for numerator graphs labelled with transition ids;
+resume from the latest trainer checkpoint; periodic diagnostics (and a
+valid-set objf when ``valid_set``/``valid_fst_scp`` are given); the final
+combination (the best-valid average of the last checkpoints).
+Checkpoints ``<steps>.ckpt`` / ``final.ckpt`` carry satpu's ``model_id``
+(``asrbn_tdnnf``, ``asrbn_tdnnf_spkadv`` with ``num_speakers`` and
+``adversarial``, ``asrbn_tdnnf_wav2vec2`` with the ``wav2vec2`` config) and
+load through ``satpu_torch.infer_helper.load_model``;
+``trainer_<steps>.ckpt`` holds the optimizer and natural-gradient states.
+
+Inputs: wav.scp + utt2len in ``train_set`` (and utt2spk for
+``tdnnf_spkadv``), per-utterance numerator FSTs (``fst_scp``), the den graph
+(``den_fst``) and ``num_pdfs``; ``satpu_torch.bin.prepare_data`` writes
+them all from a kaldi data dir.
 
 ``augmentation`` (inline lenient JSON or a .json path, with its noise and
 RIR databases; ``ops.augment.load_augmentation``) augments every eg of a
-batch on the host.
-
-Not ported yet (they raise NotImplementedError): the dp / spkadv / wav2vec2
-models, the bf16 training policy and transition-id graphs (ROADMAP Queue 1,
-item 11). Multi-device data parallelism (item 15) is not ported: one
-process trains on one device.
+batch on the host. Multi-device data parallelism (ROADMAP item 15) is not
+ported: one process trains on one device.
 
 Usage (from the repository root):
-  python -m satpu_torch.bin.train_asr --config egs/asr/librispeech/configs/tdnnf_vq_48.ini
+  python -m satpu_torch.bin.train_asr --config egs/asr/librispeech/configs/tdnnf_wav2vec2_vq_48.ini
   python -m satpu_torch.bin.train_asr --train-set data/x --fst-scp ... --device cpu
 """
 from __future__ import annotations
@@ -53,7 +66,8 @@ class TrainAsrOpts(cfg.Opts):
     normalization_fst: str = ""
     trans_mdl: str = ""
     num_pdfs: int = 0
-    model: str = "tdnnf"  # tdnnf | tdnnf_vq
+    # tdnnf | tdnnf_vq | tdnnf_dp | tdnnf_spkadv | tdnnf_wav2vec2[_vq|_dp]
+    model: str = "tdnnf"
     hidden_dim: int = 1024
     bottleneck_dim: int = 128
     prefinal_bottleneck_dim: int = 256
@@ -73,9 +87,8 @@ class TrainAsrOpts(cfg.Opts):
     init_weight_model: str = ""
     compute_dtype: str = "float32"
     augmentation: str = ""
-    # options of the variants (ROADMAP item 11): tdnnf_spkadv's train_asi
-    # phase and gradient reversal, tdnnf_dp's Laplace epsilon, the wav2vec2
-    # front's size
+    # the variants' options: tdnnf_spkadv's train_asi phase and gradient
+    # reversal, the DP bottleneck's Laplace epsilon, the wav2vec2 front's size
     freeze_encoder: bool = False
     adversarial: bool = True
     dp_epsilon: float = 0.0
@@ -83,8 +96,11 @@ class TrainAsrOpts(cfg.Opts):
     device: str = "cuda"
 
 
-_UNPORTED_MODELS = ("tdnnf_dp", "tdnnf_spkadv", "tdnnf_wav2vec2", "tdnnf_wav2vec2_vq",
-                    "tdnnf_wav2vec2_dp")
+MODELS = ("tdnnf", "tdnnf_vq", "tdnnf_dp", "tdnnf_spkadv", "tdnnf_wav2vec2",
+          "tdnnf_wav2vec2_vq", "tdnnf_wav2vec2_dp")
+# tdnnf_spkadv's freeze_encoder: the heads that keep training (with the
+# speaker branch); the rest of the acoustic trunk takes no update
+TRAINABLE_HEADS = {"prefinal_chain", "prefinal_xent", "chain_output", "xent_output"}
 
 
 def _check_supported(opts: TrainAsrOpts) -> None:
@@ -92,14 +108,39 @@ def _check_supported(opts: TrainAsrOpts) -> None:
         raise ValueError(
             "freeze_encoder is the spkadv train_asi phase and requires model = tdnnf_spkadv; "
             "for the wav2vec2 front use its built-in freeze schedule")
-    if opts.model in _UNPORTED_MODELS:
-        raise NotImplementedError(f"model {opts.model!r} is not ported yet: ROADMAP Queue 1,"
-                                  " item 11 (the dp / spkadv / wav2vec2 variants)")
-    if opts.model not in ("tdnnf", "tdnnf_vq"):
+    if opts.model not in MODELS:
         raise ValueError(f"unknown model {opts.model!r}")
-    if opts.compute_dtype != "float32":
-        raise NotImplementedError("the bf16 training policy is not ported yet: ROADMAP"
-                                  " Queue 1, item 11")
+    if opts.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {opts.compute_dtype!r}")
+    if opts.model.startswith("tdnnf_wav2vec2") and opts.wav2vec2_size not in ("large", "base"):
+        raise ValueError(f"unknown wav2vec2_size {opts.wav2vec2_size!r}")
+
+
+def build_params_for(opts: TrainAsrOpts, num_speakers: int = 0):
+    """(model_id, build_params) of the model ``opts`` trains, as satpu's
+    checkpoints write them."""
+    from ..models.asrbn import TDNNFNetConfig, wav2vec2_tdnnf_config
+    from ..models.wav2vec2 import Wav2Vec2Config
+
+    widths = dict(hidden_dim=opts.hidden_dim, bottleneck_dim=opts.bottleneck_dim,
+                  prefinal_bottleneck_dim=opts.prefinal_bottleneck_dim,
+                  natural_gradient=opts.natural_gradient, compute_dtype=opts.compute_dtype)
+    if opts.model.startswith("tdnnf_wav2vec2"):
+        bottleneck = {"vq": "vq", "dp": "dp"}.get(opts.model.rsplit("_", 1)[-1], "none")
+        mcfg = dataclasses.replace(
+            wav2vec2_tdnnf_config(output_dim=opts.num_pdfs, bottleneck=bottleneck,
+                                  codebook_size=opts.codebook_size, epsilon=opts.dp_epsilon),
+            **widths)
+        w2v2 = Wav2Vec2Config.large() if opts.wav2vec2_size == "large" else Wav2Vec2Config.base()
+        return "asrbn_tdnnf_wav2vec2", dict(dataclasses.asdict(mcfg),
+                                            wav2vec2=dataclasses.asdict(w2v2))
+    bottleneck = {"tdnnf_vq": "vq", "tdnnf_dp": "dp"}.get(opts.model, "none")
+    mcfg = TDNNFNetConfig(output_dim=opts.num_pdfs, bottleneck=bottleneck,
+                          codebook_size=opts.codebook_size, epsilon=opts.dp_epsilon, **widths)
+    if opts.model == "tdnnf_spkadv":
+        return "asrbn_tdnnf_spkadv", dict(dataclasses.asdict(mcfg), num_speakers=num_speakers,
+                                          adversarial=opts.adversarial)
+    return "asrbn_tdnnf", dataclasses.asdict(mcfg)
 
 
 def main(argv=None) -> int:
@@ -118,11 +159,10 @@ def main(argv=None) -> int:
     import torch
 
     from .. import infer_helper, resolve_device
-    from ..chain.dataset import BucketBatchSampler, EgsDataset
+    from ..chain.dataset import BucketBatchSampler, EgsDataset, speaker_index
     from ..chain.fst import Fst
     from ..chain.objf import DenominatorGraph
     from ..chain.trainer import ChainTrainer, ChainTrainOpts
-    from ..models.asrbn import TDNNFNetConfig
     from ..ops.augment import load_augmentation
     from ..utils.metrics import MetricsWriter
 
@@ -146,14 +186,11 @@ def main(argv=None) -> int:
                               normalization_fst=norm_fst, trans_mdl=opts.trans_mdl or None)
         valid_ds.filter_min_path()
 
-    mcfg = TDNNFNetConfig(output_dim=opts.num_pdfs,
-                          bottleneck="vq" if opts.model == "tdnnf_vq" else "none",
-                          hidden_dim=opts.hidden_dim, bottleneck_dim=opts.bottleneck_dim,
-                          prefinal_bottleneck_dim=opts.prefinal_bottleneck_dim,
-                          codebook_size=opts.codebook_size,
-                          natural_gradient=opts.natural_gradient)
-    build_params = dataclasses.asdict(mcfg)
-    model = infer_helper.build_model("asrbn_tdnnf", device=dev, seed=0, **build_params)
+    speakers, spk_index = [], None
+    if opts.model == "tdnnf_spkadv":
+        speakers, spk_index = speaker_index(os.path.join(opts.train_set, "utt2spk"))
+    model_id, build_params = build_params_for(opts, len(speakers))
+    model = infer_helper.build_model(model_id, device=dev, seed=0, **build_params)
     if opts.init_weight_model:
         _, loaded = ckpt.load_checkpoint(opts.init_weight_model)
         merged, matched, unmatched = ckpt.match_params(model.state_dict(), loaded)
@@ -170,11 +207,27 @@ def main(argv=None) -> int:
         """Exponential decay lr_initial -> lr_final over the run."""
         return opts.lr_initial * math.exp(min(step / float(total_steps), 1.0) * log_ratio)
 
+    preprocessor_schedule = freeze_filter = None
+    if opts.model.startswith("tdnnf_wav2vec2"):
+        def preprocessor_schedule(step: int) -> float:
+            """The wav2vec2 front's update factor: 1/20 for the first 10% of
+            the steps, 1/5 until 90%, frozen after."""
+            frac = step / float(total_steps)
+            return 1.0 / 20.0 if frac < 0.1 else 1.0 / 5.0 if frac < 0.9 else 0.0
+    if opts.freeze_encoder:
+        def freeze_filter(name: str) -> bool:
+            parts = name.split(".")
+            return "acoustic" in parts and not TRAINABLE_HEADS & set(parts)
+
+        logging.info("freeze_encoder: acoustic trunk updates zeroed "
+                     "(prefinal/output heads + asi branch keep training)")
     topts = ChainTrainOpts(lr=opts.lr_initial, xent_regularize=opts.xent_regularize,
                            l2_regularize=opts.l2_regularize,
-                           leaky_hmm_coefficient=opts.leaky_hmm_coefficient)
+                           leaky_hmm_coefficient=opts.leaky_hmm_coefficient,
+                           compute_dtype=opts.compute_dtype)
     trainer = ChainTrainer(model, den, topts, grad_acc_steps=opts.grad_acc_steps,
-                           lr_schedule=lr_at)
+                           lr_schedule=lr_at, preprocessor_schedule=preprocessor_schedule,
+                           freeze_filter=freeze_filter)
 
     def to_dev(wavs, graphs, frames):
         from ..chain.objf import graphs_to_torch
@@ -194,7 +247,7 @@ def main(argv=None) -> int:
 
     def save(epoch: int, final: bool = False) -> None:
         name = "final.ckpt" if final else f"{steps}.ckpt"
-        infer_helper.save_model(os.path.join(opts.dirname, name), "asrbn_tdnnf",
+        infer_helper.save_model(os.path.join(opts.dirname, name), model_id,
                                 build_params, model.state_dict(), extra_meta={"steps": steps})
         if not final:
             ckpt.save_trainer_checkpoint(
@@ -210,8 +263,12 @@ def main(argv=None) -> int:
         for epoch in range(start_epoch, opts.num_epochs):
             sampler.set_epoch(epoch)
             for batch_idx in sampler:
-                wavs, graphs, frames, _ = ds.load_batch(batch_idx)
-                metrics = trainer.step(*to_dev(wavs, graphs, frames))
+                wavs, graphs, frames, utts = ds.load_batch(batch_idx)
+                kw = {}
+                if spk_index is not None:
+                    kw["spk_target"] = torch.tensor([spk_index.get(u, 0) for u in utts],
+                                                    device=dev)
+                metrics = trainer.step(*to_dev(wavs, graphs, frames), **kw)
                 steps += 1
                 if steps % opts.diagnostics_interval == 0:
                     scal = {k: float(v) for k, v in metrics.items()}

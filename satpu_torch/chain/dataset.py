@@ -13,15 +13,19 @@ output length (port of ``satpu.chain.dataset``).
 
 With a ``transform_pipeline`` each eg of a batch is augmented
 (``ops.augment.data_augmentation``) from the dataset's ``random.Random(seed)``
-and cut to the batch's length, as satpu's. Transition-id graphs
-(``trans_mdl``) are not ported yet (ROADMAP Queue 1, item 11).
+and cut to the batch's length, as satpu's. With ``trans_mdl`` (a kaldi
+``0.trans_mdl``) the numerator graphs carry transition ids and are
+relabelled to pdf+1 through the transition model (``chain.hmm``) before
+normalization. ``speaker_index`` gives the speaker-adversarial net its
+targets: each utterance's speaker as an index into the sorted speakers of
+an utt2spk file.
 """
 from __future__ import annotations
 
 import random
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +33,7 @@ from ..ops.augment import data_augmentation
 from ..utils import kaldi_data
 from .fst import (Fst, GraphArrays, fst_compose_acceptor, fst_rmepsilon, fst_to_arrays,
                   pad_graph_arrays, read_fst_kaldi)
+from .hmm import read_transition_model, relabel_fst_to_pdfs
 
 
 def fst_min_path_length(fst: Fst) -> int:
@@ -49,6 +54,14 @@ def fst_min_path_length(fst: Fst) -> int:
         if w != float("inf"):
             best = min(best, dist[s])
     return best
+
+
+def speaker_index(utt2spk_path: str) -> Tuple[List[str], Dict[str, int]]:
+    """(sorted speakers, {utt: index of its speaker}) of an utt2spk file."""
+    utt2spk = kaldi_data.read_keyed_text(utt2spk_path)
+    speakers = sorted(set(utt2spk.values()))
+    pos = {s: i for i, s in enumerate(speakers)}
+    return speakers, {u: pos[s] for u, s in utt2spk.items()}
 
 
 @dataclass
@@ -77,10 +90,6 @@ class EgsDataset:
                  noise_db=None, rir_db=None, seed: int = 42,
                  normalization_fst: Optional[str] = None,
                  trans_mdl: Optional[str] = None):
-        if trans_mdl:
-            raise NotImplementedError(
-                "transition-id graphs (chain/hmm.py trans_mdl) are not ported yet: ROADMAP"
-                " Queue 1, item 11")
         self.samples_per_frame = samples_per_frame
         self.frame_subsampling = frame_subsampling
         self.transform_pipeline = transform_pipeline
@@ -88,6 +97,7 @@ class EgsDataset:
         self.rng = random.Random(seed)
         self.np_rng = np.random.RandomState(seed)
         self.normalization_fst = Fst.read(normalization_fst) if normalization_fst else None
+        self.trans_mdl = read_transition_model(trans_mdl) if trans_mdl else None
         self._supervision_cache: Dict[int, GraphArrays] = {}
         utt2wav = kaldi_data.read_wav_scp(wav_scp)
         utt2fst = kaldi_data.read_wav_scp(fst_scp)
@@ -123,6 +133,8 @@ class EgsDataset:
             return cached
         e = self.egs[index]
         g = e.load_fst()
+        if self.trans_mdl is not None:
+            g = relabel_fst_to_pdfs(g, self.trans_mdl)
         if self.normalization_fst is not None:
             g = fst_compose_acceptor(g, self.normalization_fst)
             if g.num_states == 0:

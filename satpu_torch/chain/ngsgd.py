@@ -13,6 +13,8 @@ The work is split as in satpu:
 - ``NatAffine`` (an ``autograd.Function``): the forward is ``x @ W.T + b``;
   the backward returns the RAW gradients and leaves each side's statistics
   ``J = W Z^T Z / N``, ``n = sum Z^2`` and ``N`` in the layer's ``NGSlot``;
+  under the bf16 training policy (the ``compute_dtype`` of satpu's NG
+  hyper) its matmuls run in bf16 with f32 results;
 - ``precondition_gradients``: once per step, every layer's gradient is
   preconditioned from its states and statistics, batched over layers of
   the same shape, and every state advances; every ``update_period``-th step
@@ -124,31 +126,52 @@ class NGSlot:
         self.stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """a @ b; with "bfloat16" the operands are bf16 and the product comes
+    back f32 (satpu's bf16 matmul with f32 accumulation)."""
+    if compute_dtype == "bfloat16":
+        return (a.to(torch.bfloat16) @ b.to(torch.bfloat16)).float()
+    return a @ b
+
+
 class NatAffine(torch.autograd.Function):
     """y = x2d @ weight.T + bias; the backward returns raw gradients and
-    records the per-side NG statistics in ``slot.stats``."""
+    records the per-side NG statistics in ``slot.stats``.
+
+    ``compute_dtype="bfloat16"`` runs the three large matmuls (forward,
+    grad_x, grad_weight) in bf16 with f32 results; the statistics and the
+    preconditioner stay f32. A layer that a forward uses twice takes two
+    backwards, and its statistics are their sums (J, n and N each), as
+    satpu's cotangents of the states sum over the uses."""
 
     @staticmethod
-    def forward(ctx, x2d, weight, bias, slot: NGSlot):
+    def forward(ctx, x2d, weight, bias, slot: NGSlot, compute_dtype: str):
         ctx.save_for_backward(x2d, weight)
-        ctx.slot = slot
+        ctx.slot, ctx.compute_dtype = slot, compute_dtype
+        if compute_dtype == "bfloat16":
+            return _mm(x2d, weight.T, compute_dtype) + bias
         return torch.addmm(bias, x2d, weight.T)
 
     @staticmethod
     def backward(ctx, g):
         x2d, weight = ctx.saved_tensors
-        slot = ctx.slot
+        slot, dt = ctx.slot, ctx.compute_dtype
         N = x2d.shape[0]
         Z_in = torch.cat([x2d, torch.ones((N, 1), dtype=x2d.dtype, device=x2d.device)], 1)
-        slot.stats = {"in": _side_stats(Z_in, slot.state["in"]["W"]),
-                      "out": _side_stats(g, slot.state["out"]["W"])}
-        return g @ weight, g.T @ x2d, g.sum(0), None
+        stats = {"in": _side_stats(Z_in, slot.state["in"]["W"]),
+                 "out": _side_stats(g, slot.state["out"]["W"])}
+        if slot.stats is not None:
+            stats = {side: {k: v + slot.stats[side][k] for k, v in st.items()}
+                     for side, st in stats.items()}
+        slot.stats = stats
+        return (_mm(g, weight, dt), _mm(g.T, x2d, dt).to(weight.dtype), g.sum(0), None,
+                None)
 
 
 def nat_affine(x2d: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               slot: NGSlot) -> torch.Tensor:
+               slot: NGSlot, compute_dtype: str = "float32") -> torch.Tensor:
     """x2d [N, D_in], weight [D_out, D_in], bias [D_out] -> [N, D_out]."""
-    return NatAffine.apply(x2d, weight, bias, slot)
+    return NatAffine.apply(x2d, weight, bias, slot, compute_dtype)
 
 
 def _gamma_factors(W, d, rho, c, n, alpha):

@@ -1,5 +1,5 @@
-"""Chain graph construction, numpy only: the parts of ``satpu.chain.prep``
-that build a denominator graph and matching numerator supervisions.
+"""Chain graph construction and data preparation, numpy only (a copy of
+``satpu.chain.prep`` with fixtures of its own for runs without a corpus).
 
 - ``BiphoneTree``: flat-start biphone tree with kaldi's 1-state chain
   topology (each seen (left, phone) pair owns a forward and a self-loop pdf;
@@ -16,10 +16,21 @@ that build a denominator graph and matching numerator supervisions.
   ``write_random_chain_corpus``, a synthetic training set over it;
 - ``Lexicon``, ``text_to_phones``, ``estimate_phone_bigram``,
   ``estimate_word_bigram`` and ``make_decode_graph``: the word-bigram
-  decoding graph (HCLG equivalent) that evaluation decodes with.
+  decoding graph (HCLG equivalent) that evaluation decodes with;
+- ``phone_lm_fst``: the bigram as an epsilon-free phone acceptor;
+- ``make_normalization_fst``: the den graph with power-iterated initial
+  probabilities and every state final (kaldi chain-make-den-fst's second
+  output), which numerator supervisions are composed with;
+- data preparation, numpy only: ``allowed_sample_lengths`` and
+  ``perturb_speed_to_allowed_lengths`` (speed perturbation that snaps
+  every utterance to one of a few allowed lengths, by linear resampling)
+  and ``prepare_chain_data``, which turns a kaldi data dir (wav.scp, text,
+  utt2spk [, lexicon]) into everything ``train_asr`` reads: the perturbed
+  egs, numerator arks and scps, ``den.fst``, ``normalization.fst``,
+  ``tree.json``, ``phones.txt``, ``num_pdfs``, and the ``HCLG.fst`` /
+  ``words.txt`` that evaluation decodes with.
 
-Data preparation (speed perturbation, ``prepare_chain_data``) and
-``phone_lm_fst`` are not ported yet.
+Every file it writes has satpu's bytes for the same inputs.
 """
 from __future__ import annotations
 
@@ -153,6 +164,25 @@ def estimate_phone_bigram(phone_seqs: Sequence[Sequence[int]], num_phones: int,
     return init, trans, final
 
 
+def phone_lm_fst(init: np.ndarray, trans: np.ndarray, final: np.ndarray,
+                 prune_floor: float = 1e-6) -> Fst:
+    """Bigram matrices -> epsilon-free acceptor over phone labels. State 0 =
+    BOS, state p = "last phone was p"."""
+    P = len(final) - 1
+    fst = Fst()
+    for _ in range(P + 1):
+        fst.add_state()
+    fst.start = 0
+    for q in range(P + 1):
+        if q > 0:
+            fst.set_final(q, -math.log(max(final[q], prune_floor)))
+        row = trans[q]
+        for p in range(1, P + 1):
+            if row[p] > prune_floor:
+                fst.add_arc(q, Arc(p, p, -math.log(row[p]), p))
+    return fst
+
+
 @dataclass
 class BiphoneTree:
     """(left_phone, phone) -> pdf pair, kaldi chain topology (2 pdfs per
@@ -268,6 +298,52 @@ def make_den_fst(trans, final, tree: BiphoneTree, prune_floor: float = 1e-6) -> 
     return fst
 
 
+def make_normalization_fst(den: Fst, num_iters: int = 100) -> Fst:
+    """den.fst with power-iterated initial probabilities and all states final
+    (kaldi chain-make-den-fst's second output; used to weight numerator
+    supervisions so num/den share the same normalization)."""
+    n = den.num_states
+    # transition matrix in prob space
+    probs = np.zeros(n)
+    probs[den.start] = 1.0
+    rows: List[List[Tuple[int, float]]] = [[] for _ in range(n)]
+    for s in range(n):
+        tot = 0.0
+        outs = []
+        for a in den.arcs[s]:
+            w = math.exp(-a.weight)
+            outs.append((a.nextstate, w))
+            tot += w
+        if tot > 0:
+            rows[s] = [(d, w / tot) for d, w in outs]
+    # kaldi chain-den-graph ComputeInitialProbs: occupancies AVERAGED over the
+    # first num_iters steps (so the true start state keeps nonzero mass and
+    # numerator paths beginning at BOS stay composable)
+    acc = probs.copy()
+    for _ in range(num_iters):
+        nxt = np.zeros(n)
+        for s in range(n):
+            ps = probs[s]
+            if ps > 0:
+                for d, w in rows[s]:
+                    nxt[d] += ps * w
+        probs = nxt / max(nxt.sum(), 1e-30)
+        acc += probs
+    probs = acc / max(acc.sum(), 1e-30)
+    out = Fst()
+    new_start = out.add_state()
+    for _ in range(n):
+        out.add_state()
+    out.start = new_start
+    for s in range(n):
+        if probs[s] > 1e-20:
+            out.add_arc(new_start, Arc(0, 0, -math.log(probs[s]), s + 1))
+        out.set_final(s + 1, 0.0)
+        for a in den.arcs[s]:
+            out.add_arc(s + 1, Arc(a.ilabel, a.olabel, a.weight, a.nextstate + 1))
+    return out
+
+
 def numerator_fst(phone_ids: Sequence[int], tree: BiphoneTree,
                   optional_sil: Optional[int] = None) -> Fst:
     """Transcript phones -> e2e supervision acceptor over pdf+1 labels:
@@ -333,6 +409,200 @@ def write_fst_ark(fsts: Dict[str, Fst], ark_path: str, scp_path: str) -> None:
             ark.write(b"\0B")
             fst.write_binary(ark)
             scp.write(f"{utt} {os.path.abspath(ark_path)}:{offset}\n")
+
+
+def allowed_sample_lengths(lengths: Sequence[int], num_lengths: int = 12,
+                           coverage: float = 0.05,
+                           frame_subsampling: int = 3,
+                           samples_per_frame: int = 160) -> List[int]:
+    """Geometric ladder of sample counts covering the central mass of the
+    length distribution (perturb_speed_to_allowed_lengths.py). Lengths are
+    snapped to multiples of frame_subsampling*samples_per_frame so output
+    frame counts are exact."""
+    arr = np.sort(np.asarray(lengths))
+    lo = float(arr[int(len(arr) * coverage)])
+    hi = float(arr[min(int(len(arr) * (1 - coverage)), len(arr) - 1)])
+    hi = max(hi, lo * 1.01)
+    factor = (hi / lo) ** (1.0 / max(num_lengths - 1, 1))
+    quantum = frame_subsampling * samples_per_frame
+    out = []
+    for i in range(num_lengths):
+        L = int(round(lo * factor**i / quantum)) * quantum
+        if not out or L > out[-1]:
+            out.append(L)
+    return out
+
+
+def _resample_linear(x: np.ndarray, out_len: int) -> np.ndarray:
+    """Length-exact linear resample (the speed perturbation itself)."""
+    in_len = x.shape[-1]
+    if in_len == out_len:
+        return x.astype(np.float32)
+    pos = np.linspace(0.0, in_len - 1.0, out_len)
+    i0 = np.floor(pos).astype(np.int64)
+    i1 = np.minimum(i0 + 1, in_len - 1)
+    frac = (pos - i0).astype(np.float32)
+    return (x[..., i0] * (1.0 - frac) + x[..., i1] * frac).astype(np.float32)
+
+
+def perturb_speed_to_allowed_lengths(data_dir: str, out_dir: str,
+                                     num_lengths: int = 12,
+                                     speeds: Sequence[float] = (0.9, 1.0, 1.1),
+                                     max_stretch: float = 0.1) -> Dict[str, int]:
+    """Create a speed-perturbed copy of ``data_dir`` where every utterance
+    lands exactly on an allowed length (prepare_data.sh:137-141). Returns the
+    new utt2len (samples). Writes wav files under out_dir/wavs plus wav.scp,
+    utt2spk, text, utt2len, allowed_lengths.txt."""
+    os.makedirs(os.path.join(out_dir, "wavs"), exist_ok=True)
+    utt2wav = kaldi_data.read_wav_scp(os.path.join(data_dir, "wav.scp"))
+    utt2spk = kaldi_data.read_keyed_text(os.path.join(data_dir, "utt2spk"))
+    text_path = os.path.join(data_dir, "text")
+    utt2text = kaldi_data.read_keyed_text(text_path) if os.path.exists(text_path) else {}
+
+    wavs: Dict[str, Tuple[np.ndarray, int]] = {}
+    for utt, spec in utt2wav.items():
+        w, r = kaldi_data.load_wav_from_scp(spec)
+        wavs[utt] = (w[0], r)
+    allowed = allowed_sample_lengths([len(w) for w, _ in wavs.values()],
+                                     num_lengths=num_lengths)
+
+    new_scp: Dict[str, str] = {}
+    new_spk: Dict[str, str] = {}
+    new_text: Dict[str, str] = {}
+    new_len: Dict[str, int] = {}
+    for utt, (w, rate) in wavs.items():
+        L = len(w)
+        for sp in speeds:
+            target_nominal = L / sp
+            # closest allowed length within the stretch tolerance
+            cands = [a for a in allowed
+                     if abs(a - target_nominal) / target_nominal <= max_stretch]
+            if not cands:
+                continue
+            target = min(cands, key=lambda a: abs(a - target_nominal))
+            name = utt if sp == 1.0 else f"sp{sp:.1f}-{utt}"
+            if name in new_len:
+                continue
+            if sp == 1.0 and target == L:
+                y = w.astype(np.float32)
+            else:
+                y = _resample_linear(w, target)
+            path = os.path.join(out_dir, "wavs", f"{name}.wav")
+            kaldi_data.write_wav(path, y, rate)
+            new_scp[name] = path
+            new_spk[name] = utt2spk.get(utt, utt)
+            if utt in utt2text:
+                new_text[name] = utt2text[utt]
+            new_len[name] = target
+    kaldi_data.write_keyed_text(new_scp, os.path.join(out_dir, "wav.scp"))
+    kaldi_data.write_keyed_text(new_spk, os.path.join(out_dir, "utt2spk"))
+    if new_text:
+        kaldi_data.write_keyed_text(new_text, os.path.join(out_dir, "text"))
+    kaldi_data.write_keyed_text({k: str(v) for k, v in new_len.items()},
+                                os.path.join(out_dir, "utt2len"))
+    with open(os.path.join(out_dir, "allowed_lengths.txt"), "w") as f:
+        for a in allowed:
+            f.write(f"{a}\n")
+    return new_len
+
+
+def prepare_chain_data(data_dir: str, out_dir: str,
+                       lexicon_path: Optional[str] = None,
+                       num_lengths: int = 12, biphone: bool = True,
+                       between_silprob: float = 0.1,
+                       valid_fraction: float = 0.05,
+                       speed_perturb: bool = True, seed: int = 0) -> Dict[str, object]:
+    """data dir (wav.scp/text/utt2spk) -> trainable chain artifacts in
+    out_dir: egs/ (perturbed data), fst_train.{ark,scp}, fst_valid.scp,
+    den.fst, normalization.fst, tree.json, phones.txt, num_pdfs.
+
+    Returns a summary dict (num_pdfs, counts, paths)."""
+    rng = random.Random(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    egs_dir = os.path.join(out_dir, "egs")
+    if speed_perturb:
+        perturb_speed_to_allowed_lengths(data_dir, egs_dir, num_lengths=num_lengths)
+    else:
+        os.makedirs(egs_dir, exist_ok=True)
+        for f in ("wav.scp", "utt2spk", "text"):
+            src = os.path.join(data_dir, f)
+            if os.path.exists(src):
+                kaldi_data.write_keyed_text(kaldi_data.read_keyed_text(src),
+                                            os.path.join(egs_dir, f))
+        kaldi_data.gen_utt2len(os.path.join(egs_dir, "wav.scp"),
+                               os.path.join(egs_dir, "utt2len"))
+
+    utt2text = kaldi_data.read_keyed_text(os.path.join(egs_dir, "text"))
+    words = [w for t in utt2text.values() for w in t.split()]
+    lexicon = (Lexicon.load(lexicon_path) if lexicon_path
+               else Lexicon.grapheme(words))
+    phones = lexicon.phones()
+    phone_id = {p: i + 1 for i, p in enumerate(phones)}
+    sil_id = phone_id[lexicon.sil] if lexicon.sil in phone_id else None
+
+    # phone sequences (with sampled silences) for LM + tree estimation
+    lm_seqs: List[List[int]] = []
+    utt_phones: Dict[str, List[int]] = {}
+    for utt, text in utt2text.items():
+        ph = text_to_phones(text.split(), lexicon, between_silprob, rng)
+        ids = [phone_id[p] for p in ph]
+        lm_seqs.append(ids)
+        # numerator uses the deterministic (no sampled silence) sequence
+        ph_det = text_to_phones(text.split(), lexicon, 0.0, rng)
+        utt_phones[utt] = [phone_id[p] for p in ph_det]
+
+    init, trans, final = estimate_phone_bigram(lm_seqs, len(phones))
+    tree = BiphoneTree.build(lm_seqs, phones, biphone=biphone)
+    den = make_den_fst(trans, final, tree)
+    norm = make_normalization_fst(den)
+    den.write(os.path.join(out_dir, "den.fst"))
+    norm.write(os.path.join(out_dir, "normalization.fst"))
+    with open(os.path.join(out_dir, "tree.json"), "w") as f:
+        f.write(tree.to_json())
+    with open(os.path.join(out_dir, "phones.txt"), "w") as f:
+        f.write("<eps> 0\n")
+        for p, i in phone_id.items():
+            f.write(f"{p} {i}\n")
+    with open(os.path.join(out_dir, "num_pdfs"), "w") as f:
+        f.write(str(tree.num_pdfs))
+
+    fsts = {utt: numerator_fst(ids, tree, optional_sil=sil_id)
+            for utt, ids in utt_phones.items() if ids}
+    utts = sorted(fsts)
+    rng.shuffle(utts)
+    n_valid = max(1, int(len(utts) * valid_fraction)) if len(utts) > 2 else 0
+    valid_utts = set(utts[:n_valid])
+    write_fst_ark({u: fsts[u] for u in utts if u not in valid_utts},
+                  os.path.join(out_dir, "fst_train.ark"),
+                  os.path.join(out_dir, "fst_train.scp"))
+    if valid_utts:
+        write_fst_ark({u: fsts[u] for u in sorted(valid_utts)},
+                      os.path.join(out_dir, "fst_valid.ark"),
+                      os.path.join(out_dir, "fst_valid.scp"))
+    # decoding graph + word table (mkgraph equivalent) for eval_anon
+    try:
+        vocab, _, wtrans, wfinal = estimate_word_bigram(
+            [t.split() for t in utt2text.values()])
+        graph, word_table = make_decode_graph(tree, lexicon, phone_id, vocab,
+                                              wtrans, wfinal)
+        graph.write(os.path.join(out_dir, "HCLG.fst"))
+        with open(os.path.join(out_dir, "words.txt"), "w") as f:
+            f.write("<eps> 0\n")
+            for i, w in word_table.items():
+                f.write(f"{w} {i}\n")
+    except Exception as e:  # pragma: no cover - graph build is best-effort
+        logging.warning("decode graph build failed: %s", e)
+    logging.info("prepare_chain_data: %d phones, %d pdfs, %d train / %d valid "
+                 "numerator graphs, den %d states / %d arcs",
+                 len(phones), tree.num_pdfs, len(utts) - len(valid_utts),
+                 len(valid_utts), den.num_states, den.num_arcs)
+    return {"num_pdfs": tree.num_pdfs, "num_phones": len(phones),
+            "egs_dir": egs_dir, "den_fst": os.path.join(out_dir, "den.fst"),
+            "normalization_fst": os.path.join(out_dir, "normalization.fst"),
+            "fst_train_scp": os.path.join(out_dir, "fst_train.scp"),
+            "fst_valid_scp": os.path.join(out_dir, "fst_valid.scp") if valid_utts else "",
+            "tree": tree}
+
 
 
 def random_bigram_den(n_phones: int, succ_per_phone: int, seed: int = 0

@@ -1,15 +1,33 @@
-"""LF-MMI training step of the TDNN-F extractor (port of ``satpu.chain.trainer``).
+"""LF-MMI training step of the ASR-BN extractors (port of ``satpu.chain.trainer``).
 
 One step: the network's training forward (dropout, batch statistics, the
-VQ EMA update), the chain objective plus the VQ commitment loss, the
-backward (its den part is kernel K2b on the card), natural-gradient
-preconditioning of every affine's gradient, then clip-by-value 5 and AdamW
-(Adam with decoupled weight decay 0.001, eps 1e-8; optax's ``adamw``). With
-``grad_acc_steps`` k the optimizer steps on the mean gradient of every k
-minibatches (optax's ``MultiSteps``). The learning rate is set each step
-from ``lr_schedule(step)`` at the step count before the increment, and
-every ``orthonormal_interval``-th step re-orthonormalizes the ``inner_nat``
-weights.
+VQ EMA update, the DP noise, the speaker branch), the chain objective plus
+the network's auxiliary losses (its aux outputs whose names end in
+``_loss``: the VQ commitment, the adversarial speaker cross-entropy; the
+rest are metrics), the backward (its den part is kernel K2b on the card),
+natural-gradient preconditioning of every affine's gradient, then
+clip-by-value 5 and AdamW (Adam with decoupled weight decay 0.001, eps
+1e-8; optax's ``adamw``). With ``grad_acc_steps`` k the optimizer steps on
+the mean gradient of every k minibatches (optax's ``MultiSteps``). The
+learning rate is set each step from ``lr_schedule(step)`` at the step count
+before the increment, and every ``orthonormal_interval``-th step
+re-orthonormalizes the ``inner_nat`` weights.
+
+``compute_dtype="bfloat16"`` is satpu's bf16 training policy: the
+network's forward runs under ``models.torchlayers.autocast(bf16)`` (the
+wav2vec2 front's and the speaker branch's convs and linears in bf16; the
+TDNN-F's matmuls follow the network's own ``compute_dtype``), and the chain
+and xent outputs are cast to f32 before the objective; the objective, the
+preconditioner and the optimizer stay f32.
+
+``preprocessor_schedule(step) -> mult`` scales the AdamW update of every
+parameter under ``preprocessor`` (the wav2vec2 front) by ``mult``, and
+``freeze_filter(name) -> bool`` zeroes the update of every parameter it
+names (and keeps the orthonormal constraint off them). An AdamW update,
+decoupled weight decay included, is proportional to its group's learning
+rate, so both run as parameter groups whose learning rate is the step's
+lr x mult (and 0 when frozen): the same update as satpu's scaling of the
+update, and the moments advance as there.
 
 The natural-gradient states live here, keyed by module name
 (``ng_states``), not in the model's state_dict: a trained checkpoint has
@@ -25,6 +43,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from ..models.tdnnf import NaturalAffineTransform, constrain_orthonormal, orthonormal_weights
+from ..models.torchlayers import autocast
 from . import ngsgd
 from .objf import DenominatorGraph, chain_objf_and_grad
 
@@ -42,6 +61,7 @@ class ChainTrainOpts:
     leaky_hmm_coefficient: float = 1e-5
     xent_regularize: float = 0.025
     orthonormal_interval: int = 4
+    compute_dtype: str = "float32"  # "bfloat16": satpu's bf16 training policy
 
 
 def ng_layers(model: nn.Module) -> List[Tuple[str, NaturalAffineTransform]]:
@@ -62,19 +82,35 @@ def init_ng_states(model: nn.Module, seed: int = 0) -> Dict[str, Dict[str, ngsgd
 
 class ChainTrainer:
     """Owns the optimizer, the NG states and the dropout generator of one
-    chain training run of ``model`` (a ``models.asrbn.TDNNFNet``)."""
+    chain training run of ``model`` (a ``models.asrbn.TDNNFNet``,
+    ``Wav2Vec2TDNNFNet`` or ``models.spkadv.SpkAdvTDNNFNet``)."""
 
     def __init__(self, model: nn.Module, den: DenominatorGraph,
                  opts: ChainTrainOpts = ChainTrainOpts(), grad_acc_steps: int = 1,
                  lr_schedule: Optional[Callable[[int], float]] = None, seed: int = 0,
-                 ng_states: Optional[Dict[str, Dict[str, ngsgd.State]]] = None):
+                 ng_states: Optional[Dict[str, Dict[str, ngsgd.State]]] = None,
+                 preprocessor_schedule: Optional[Callable[[int], float]] = None,
+                 freeze_filter: Optional[Callable[[str], bool]] = None):
         self.model, self.den, self.opts = model, den, opts
         self.grad_acc_steps = grad_acc_steps
         self.lr_schedule = lr_schedule
+        self.preprocessor_schedule = preprocessor_schedule
         self.device = next(model.parameters()).device
-        self.params = [p for p in model.parameters()]
-        self.optimizer = torch.optim.AdamW(self.params, lr=opts.lr, betas=(0.9, 0.999),
-                                           eps=1e-8, weight_decay=opts.weight_decay)
+        named = list(model.named_parameters())
+        self.params = [p for _, p in named]
+        self.frozen = {n for n, _ in named if freeze_filter is not None and freeze_filter(n)}
+        # parameter groups, by the factor on the step's lr: 1, the
+        # preprocessor schedule's, 0 (frozen)
+        kinds = {"main": [], "preprocessor": [], "frozen": []}
+        for n, p in named:
+            kind = ("frozen" if n in self.frozen else "preprocessor"
+                    if preprocessor_schedule is not None and "preprocessor" in n.split(".")
+                    else "main")
+            kinds[kind].append(p)
+        self.group_kinds = [k for k, ps in kinds.items() if ps]
+        self.optimizer = torch.optim.AdamW(
+            [{"params": kinds[k]} for k in self.group_kinds], lr=opts.lr, betas=(0.9, 0.999),
+            eps=1e-8, weight_decay=opts.weight_decay)
         self.step_count = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._acc: Optional[List[torch.Tensor]] = None
@@ -96,10 +132,12 @@ class ChainTrainer:
                 else self.opts.lr)
 
     def compute_grads(self, wav: torch.Tensor, num_graphs: Dict[str, torch.Tensor],
-                      num_frames: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      num_frames: torch.Tensor, **model_kwargs
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training forward + backward on one minibatch; leaves the
         (preconditioned, with NG) gradients in ``p.grad``. Returns (loss,
-        metrics), detached.
+        metrics), detached. ``model_kwargs`` go to the network's forward
+        (``spk_target`` for the speaker-adversarial net).
 
         The objective runs in f32 whatever the network's dtype, as in satpu.
         The backward runs in two stages, the objective's (numerator and den
@@ -111,9 +149,12 @@ class ChainTrainer:
         self.model.train()
         for p in self.params:
             p.grad = None
-        with record_function("chain.net_forward"):
+        for slot in self.ng_slots.values():
+            slot.stats = None
+        cast = torch.bfloat16 if o.compute_dtype == "bfloat16" else None
+        with record_function("chain.net_forward"), autocast(cast):
             chain_out, xent_out, aux = self.model(wav.to(self.params[0].dtype),
-                                                  generator=self.generator)
+                                                  generator=self.generator, **model_kwargs)
         with record_function("chain.objective_forward"):
             co = chain_out.detach().float().requires_grad_(True)
             xo = xent_out.detach().float().requires_grad_(True)
@@ -126,12 +167,12 @@ class ChainTrainer:
         with record_function("chain.net_backward"):
             outputs = [chain_out, xent_out]
             grads = [co.grad.to(chain_out.dtype), xo.grad.to(xent_out.dtype)]
-            if "vq_loss" in aux:
-                loss = loss + aux["vq_loss"].detach()
-                metrics["vq_loss"] = aux["vq_loss"].detach()
-                metrics["vq_perplexity"] = aux["vq_perplexity"]
-                outputs.append(aux["vq_loss"])
-                grads.append(torch.ones_like(aux["vq_loss"]))
+            for name, value in aux.items():
+                if name.endswith("_loss"):
+                    loss = loss + value.detach().float()
+                    outputs.append(value)
+                    grads.append(torch.ones_like(value))
+                metrics[name] = value.detach().float()
             torch.autograd.backward(outputs, grads)
         if self.ng_slots:
             with record_function("chain.ng"):
@@ -158,22 +199,26 @@ class ChainTrainer:
             grads, self._acc, self._acc_n = self._acc, None, 0
         for p, g in zip(self.params, grads):
             p.grad = g.clamp(-self.opts.grad_clip_value, self.opts.grad_clip_value)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        mult = {"main": 1.0, "frozen": 0.0,
+                "preprocessor": (float(self.preprocessor_schedule(self.step_count))
+                                 if self.preprocessor_schedule is not None else 1.0)}
+        for kind, group in zip(self.group_kinds, self.optimizer.param_groups):
+            group["lr"] = lr * mult[kind]
         self.optimizer.step()
 
     @torch.no_grad()
     def apply_orthonormal_constraint(self) -> None:
-        for _, w in orthonormal_weights(self.model):
-            w.copy_(constrain_orthonormal(w, -1.0))
+        for name, w in orthonormal_weights(self.model):
+            if name not in self.frozen:
+                w.copy_(constrain_orthonormal(w, -1.0))
 
     def step(self, wav: torch.Tensor, num_graphs: Dict[str, torch.Tensor],
-             num_frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+             num_frames: torch.Tensor, **model_kwargs) -> Dict[str, torch.Tensor]:
         """One training step; returns its metrics (device tensors) with
         ``loss`` and ``lr``. The update and the orthonormal constraint run
         in the profiler range ``chain.optimizer``."""
         lr = self.lr_now()
-        loss, metrics = self.compute_grads(wav, num_graphs, num_frames)
+        loss, metrics = self.compute_grads(wav, num_graphs, num_frames, **model_kwargs)
         with record_function("chain.optimizer"):
             self.apply_grads(lr)
             self.step_count += 1

@@ -2,7 +2,9 @@
 ``satpu.infer_helper``).
 
 Checkpoints carry a ``model_id`` resolved through a registry of builders
-plus the JSON build params; ``load_model`` rebuilds the module on the
+(``asrbn_tdnnf``, ``asrbn_tdnnf_spkadv`` with ``num_speakers`` /
+``adversarial``, ``asrbn_tdnnf_wav2vec2`` with its ``wav2vec2`` config dict,
+``anonymizer_tdnnf_hifigan``, ``asv_xvector``) plus the JSON build params; ``load_model`` rebuilds the module on the
 requested device (CUDA by default) and loads its weights.
 """
 from __future__ import annotations
@@ -54,6 +56,25 @@ def _register_builtins():
         from .sidekit.xvector import XVectorConfig, build_xvector
 
         return build_xvector(XVectorConfig(**kwargs))
+
+    @register_model("asrbn_tdnnf_spkadv")
+    def _build_spkadv(**kwargs):
+        from .models.spkadv import SpkAdvTDNNFNet
+
+        kwargs = dict(kwargs)
+        num_speakers = kwargs.pop("num_speakers")
+        adversarial = kwargs.pop("adversarial", True)
+        return SpkAdvTDNNFNet(TDNNFNetConfig(**_tuplify(kwargs)), num_speakers=num_speakers,
+                              adversarial=adversarial)
+
+    @register_model("asrbn_tdnnf_wav2vec2")
+    def _build_asrbn_w2v2(**kwargs):
+        from .models.asrbn import Wav2Vec2TDNNFNet
+        from .models.wav2vec2 import Wav2Vec2Config
+
+        kwargs = dict(kwargs)
+        w2v2 = Wav2Vec2Config.from_dict(kwargs.pop("wav2vec2", {}))
+        return Wav2Vec2TDNNFNet(TDNNFNetConfig(**_tuplify(kwargs)), w2v2)
 
 
 def serving_option_args(compute_dtype: str = "bfloat16") -> Dict[str, Any]:

@@ -15,9 +15,24 @@ BN layer ``tdnnf_bn`` -> ``tdnnfs.{n}``, ``tdnnf_after{k}`` ->
 ``tdnnfs_after.{k}``, ``ups_{i}`` / ``resblocks_{i}`` / ``convs1_{j}`` ->
 ``ups.{i}`` / ``resblocks.{i}`` / ``convs1.{j}``.
 
-``ng_states_from_satpu`` carries a TDNNFNet's ``ng_state`` collection (the
-natural-gradient preconditioners, which the port keeps in its trainer, not
-in the state_dict) across under the same module paths.
+The ASR-BN variants: a ``Wav2Vec2TDNNFNet``'s ``preprocessor`` tree (the
+wav2vec2 front) takes HuggingFace's names, the names of
+``models.wav2vec2`` (``conv_layers_{i}_conv`` -> ``conv_layers.{i}.conv``,
+the group norm's ``conv_layers_0_layer_norm_{weight,bias}`` ->
+``conv_layers.0.layer_norm.*``, ``feature_projection_{layer_norm,
+projection}`` -> ``feature_projection.*``, ``pos_conv_embed_conv`` and
+``encoder_layer_norm`` -> ``encoder.pos_conv_embed.conv`` and
+``encoder.layer_norm``, ``layers_{i}`` -> ``encoder.layers.{i}`` with
+``feed_forward_{intermediate,output}_dense`` -> ``feed_forward.*``); its
+TDNN-F layers map as a TDNNFNet's. A ``SpkAdvTDNNFNet``'s ``acoustic``
+tree maps as a TDNNFNet's under ``acoustic.``, its ``asi_trunk`` and
+``asi_pool`` as an x-vector model's (below), its flax ``Dense``
+``asi_emb`` (kernel [in, out]) to a linear weight [out, in], and
+``asi_margin`` keeps its name.
+
+``ng_states_from_satpu`` carries the ``ng_state`` collection of any of
+these nets (the natural-gradient preconditioners, which the port keeps in
+its trainer, not in the state_dict) across under the same module paths.
 
 ``from_satpu_discriminators`` carries a satpu ``MultiPeriodDiscriminator``
 or ``MultiScaleDiscriminator`` across: its ``params`` (``weight_v`` /
@@ -51,7 +66,15 @@ _GRU_CELL = re.compile(r"^gru_l(\d+)$")
 _MID_LAYER = re.compile(r"^tdnnf(\d+)$")
 _AFTER_LAYER = re.compile(r"^tdnnf_after(\d+)$")
 _BN_STAT = {"mean": "running_mean", "var": "running_var"}
-_TDNNF_SCOPES = ("tdnn", "prefinal_", "chain_output", "xent_output", "vq_bottleneck")
+_TDNNF_SCOPES = ("tdnn", "prefinal_", "chain_output", "xent_output", "vq_bottleneck",
+                 "dp_bottleneck")
+_W2V_CONV = re.compile(r"^conv_layers_(\d+)_(conv|layer_norm)$")
+_W2V_GROUP_NORM = re.compile(r"^conv_layers_0_layer_norm_(weight|bias)$")
+_W2V_LAYER = re.compile(r"^layers_(\d+)$")
+_W2V_TOP = {"feature_projection_layer_norm": "feature_projection.layer_norm",
+            "feature_projection_projection": "feature_projection.projection",
+            "pos_conv_embed_conv": "encoder.pos_conv_embed.conv",
+            "encoder_layer_norm": "encoder.layer_norm"}
 
 
 def _flatten(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -76,6 +99,29 @@ def _tdnnf_key(path: Tuple[str, ...], n_mid: int) -> str:
     if rest[-2:-1] == ["bn"] and rest[-1] in _BN_STAT:
         rest[-1] = _BN_STAT[rest[-1]]
     return ".".join([head] + rest)
+
+
+def _wav2vec2_key(path: Tuple[str, ...]) -> str:
+    """A satpu ``Wav2Vec2Model`` param path -> the port's (HF) name."""
+    head, rest = path[0], list(path[1:])
+    if head == "feature_extractor":
+        g = _W2V_GROUP_NORM.match(rest[0])
+        if g:
+            return f"feature_extractor.conv_layers.0.layer_norm.{g.group(1)}"
+        m = _W2V_CONV.match(rest[0])
+        return ".".join([f"feature_extractor.conv_layers.{m.group(1)}.{m.group(2)}"] + rest[1:])
+    if head in _W2V_TOP:
+        return ".".join([_W2V_TOP[head]] + rest)
+    i = _W2V_LAYER.match(head).group(1)
+    sub = {"feed_forward_intermediate_dense": "feed_forward.intermediate_dense",
+           "feed_forward_output_dense": "feed_forward.output_dense"}.get(rest[0], rest[0])
+    return ".".join([f"encoder.layers.{i}", sub] + rest[1:])
+
+
+def from_satpu_wav2vec2(params: Mapping) -> Dict[str, torch.Tensor]:
+    """satpu ``Wav2Vec2Model`` params -> ``models.wav2vec2.Wav2Vec2Model``'s
+    state_dict."""
+    return {_wav2vec2_key(path): _tensor(path, leaf) for path, leaf in _flatten(params)}
 
 
 def _hifigan_key(path: Tuple[str, ...]) -> str:
@@ -105,14 +151,46 @@ def _modules(variables: Mapping) -> Iterator[Tuple[str, str, Tuple[str, ...], An
                 yield prefix, kind, path, leaf
 
 
+def _n_mid(paths) -> int:
+    """The number of middle TDNN-F layers ``tdnnf1..tdnnf{n}`` (the BN layer
+    follows them in ``tdnnfs``)."""
+    return max([int(m.group(1)) for path in paths if (m := _MID_LAYER.match(path[0]))],
+               default=0)
+
+
+def _spkadv_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``SpkAdvTDNNFNet``'s variables -> its state_dict."""
+    acoustic = {coll: (variables.get(coll) or {}).get("acoustic", {})
+                for coll in ("params", "batch_stats", "vq_stats")}
+    out = {"acoustic." + k: v for k, v in from_satpu_variables(acoustic).items()}
+    branch = {coll: {k: v for k, v in (variables.get(coll) or {}).items()
+                     if k in ("asi_trunk", "asi_pool")}
+              for coll in ("params", "batch_stats")}
+    out.update(from_satpu_xvector(branch))
+    params = variables["params"]
+    out["asi_emb.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(params["asi_emb"]["kernel"], np.float32).T))
+    out["asi_emb.bias"] = _tensor(("bias",), params["asi_emb"]["bias"])
+    out["asi_margin.weight"] = _tensor(("weight",), params["asi_margin"]["weight"])
+    return out
+
+
 def from_satpu_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """satpu variables {params, batch_stats, vq_stats} -> torch state_dict."""
+    if "acoustic" in (variables.get("params") or {}):
+        return _spkadv_state_dict(variables)
     entries = list(_modules(variables))
-    # the BN layer follows the middle layers tdnnf1..tdnnf{n} in `tdnnfs`
-    n_mid = max([int(m.group(1)) for _, kind, path, _ in entries
-                 if kind == "tdnnf" and (m := _MID_LAYER.match(path[0]))], default=0)
-    return {prefix + (_tdnnf_key(path, n_mid) if kind == "tdnnf" else _hifigan_key(path)):
-            _tensor(path, leaf) for prefix, kind, path, leaf in entries}
+    n_mid = _n_mid(path for _, kind, path, _ in entries if kind == "tdnnf")
+    out = {}
+    for prefix, kind, path, leaf in entries:
+        if kind == "tdnnf" and path[0] == "preprocessor":  # a Wav2Vec2TDNNFNet's front
+            key = "preprocessor." + _wav2vec2_key(path[1:])
+        elif kind == "tdnnf":
+            key = _tdnnf_key(path, n_mid)
+        else:
+            key = _hifigan_key(path)
+        out[prefix + key] = _tensor(path, leaf)
+    return out
 
 
 def from_satpu_discriminators(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -161,17 +239,20 @@ def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def ng_states_from_satpu(ng_state: Mapping) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
     """satpu's per-layer ``ng_state`` tree ({..layer..: {"in"|"out": {W, d,
-    rho, t, nrows}}}) -> {module path: {"in"|"out": {W, d, rho, t}}}, the
-    layout of ``satpu_torch.chain.trainer.ChainTrainer.ng_states``."""
+    rho, t, nrows}}}) of a TDNNFNet, Wav2Vec2TDNNFNet or SpkAdvTDNNFNet ->
+    {module path: {"in"|"out": {W, d, rho, t}}}, the layout of
+    ``satpu_torch.chain.trainer.ChainTrainer.ng_states``."""
     entries = list(_flatten(ng_state))
-    n_mid = max([int(m.group(1)) for path, _ in entries
-                 if (m := _MID_LAYER.match(path[0]))], default=0)
+    # a SpkAdvTDNNFNet holds its TDNN-F under `acoustic`
+    prefix = "acoustic." if entries and entries[0][0][0] == "acoustic" else ""
+    entries = [(path[1:] if prefix else path, leaf) for path, leaf in entries]
+    n_mid = _n_mid(path for path, _ in entries)
     out: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {}
     for path, leaf in entries:
         *module, side, key = path
         if key == "nrows":  # a statistics carrier of satpu's custom_vjp
             continue
-        name = _tdnnf_key(tuple(module) + ("_",), n_mid)[:-2]
+        name = prefix + _tdnnf_key(tuple(module) + ("_",), n_mid)[:-2]
         out.setdefault(name, {}).setdefault(side, {})[key] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
     return out

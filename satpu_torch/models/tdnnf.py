@@ -7,9 +7,11 @@ TDNNF layer with an integer subsampling factor runs as one strided
 fractional 1.5 factor keeps the reference's flattened-feature stagger as an
 explicit gather.
 
-``compute_dtype="bfloat16"`` is the serving policy: splice/affine matmuls in
-bf16 with f32 parameters, batch norm and VQ in f32, inter-layer activations
-stored bf16.
+``compute_dtype="bfloat16"`` runs the splice/affine matmuls in bf16 with f32
+parameters and f32 results, batch norm and VQ in f32. Serving (eval mode)
+also stores the inter-layer activations bf16; training keeps them f32 and
+only the matmuls run bf16 (satpu's train-mode policy), natural-gradient
+affines included.
 
 Training (``module.train()``, f32) follows satpu's ``train=True``: batch
 norm normalizes with the batch's statistics over (B, T) and updates its
@@ -18,7 +20,8 @@ update and reports its commitment loss and perplexity, and with natural
 gradient on every affine runs on spliced rows through
 ``chain.ngsgd.NatAffine`` once the trainer has given it an ``ng_slot``.
 ``constrain_orthonormal`` is the orthonormal constraint on the ``inner_nat``
-weights, applied between steps.
+weights, applied between steps. ``rev_grad`` is the gradient reversal of the
+speaker-adversarial net.
 """
 from __future__ import annotations
 
@@ -115,7 +118,7 @@ class NaturalAffineTransform(nn.Module):
 
             B, C, T = x.shape
             x2d = x.transpose(1, 2).reshape(B * T, C).to(self.weight.dtype)
-            y = nat_affine(x2d, self.weight, self.bias, self.ng_slot)
+            y = nat_affine(x2d, self.weight, self.bias, self.ng_slot, self.compute_dtype)
             return y.reshape(B, T, self.out_dim).transpose(1, 2)
         w = self.weight
         if self.compute_dtype == "bfloat16":
@@ -379,3 +382,23 @@ class TDNNFBatchNorm(nn.Module):
             # casts to bf16 anyway; BN statistics stay f32)
             h = h.to(torch.bfloat16)
         return h
+
+
+class RevGrad(torch.autograd.Function):
+    """Gradient reversal: the identity forward, ``-alpha`` times the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, alpha: float):
+        ctx.alpha = alpha
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return -g * ctx.alpha, None
+
+
+def rev_grad(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """``x`` forward; ``-alpha * grad`` backward (the speaker-adversarial
+    branch's gradient reversal)."""
+    return RevGrad.apply(x, alpha)

@@ -10,71 +10,21 @@ Batch norm follows the module's mode: batch statistics in training (and
 an update of the running ones), the running statistics in eval.
 
 ``autocast(torch.bfloat16)`` is satpu's mixed-precision policy
-(``satpu.models.torchlayers.autocast``): inside it every ``Conv1d``,
-``Conv2d`` and ``Linear`` of this module casts its input, weight and bias to
-bf16, and batch norm computes and returns f32. Everything else
-(pooling arithmetic, the ArcMargin product, losses) keeps its input's dtype.
+(``models.torchlayers``, where ``Conv1d``, ``Conv2d``, ``Linear`` and
+``autocast`` live): inside it every conv and linear casts its input,
+weight and bias to bf16, and batch norm computes and returns f32.
+Everything else (pooling arithmetic, the ArcMargin product, losses) keeps
+its input's dtype.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
-import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-_AUTOCAST: contextvars.ContextVar = contextvars.ContextVar("satpu_torch_autocast",
-                                                           default=None)
-
-
-@contextlib.contextmanager
-def autocast(dtype: Optional[torch.dtype]):
-    """Run the block's conv and linear layers in ``dtype`` (None: as is)."""
-    token = _AUTOCAST.set(dtype)
-    try:
-        yield
-    finally:
-        _AUTOCAST.reset(token)
-
-
-class _SatpuInit:
-    """satpu's init for a torch conv or linear layer (weight and bias uniform
-    in +-sqrt(3 / fan_in), drawn from an optional generator) and the
-    ``autocast`` policy's casts."""
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        bound = math.sqrt(3.0 / self.weight[0].numel())
-        for t in (self.weight, self.bias):
-            if t is not None:
-                t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-
-    def _cast(self, x: torch.Tensor):
-        """(x, weight, bias) in the policy's compute dtype."""
-        dt = _AUTOCAST.get()
-        if dt is None or not x.is_floating_point():
-            return x, self.weight, self.bias
-        return (x.to(dt), self.weight.to(dt),
-                None if self.bias is None else self.bias.to(dt))
-
-
-class Conv1d(_SatpuInit, nn.Conv1d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
-
-
-class Conv2d(_SatpuInit, nn.Conv2d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
-
-
-class Linear(_SatpuInit, nn.Linear):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*self._cast(x))
+from ..models.torchlayers import Conv1d, Conv2d, Linear, autocast  # noqa: F401
 
 
 class BatchNorm(nn.Module):

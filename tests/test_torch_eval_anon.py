@@ -5,7 +5,8 @@ weights (randomized batch norms) across the bridge, 3 utterances, an ARPA
 LM, both rescore modes and both x-vector modes. ``results.json`` holds
 the reference word count and the ASV metrics; the dumped loglikes match
 satpu's network (rel 1e-4) and the hyps in ``hyp.ctm`` are exactly what
-satpu's native lattice decode and rescoring make of those loglikes."""
+satpu's native lattice decode and rescoring make of those loglikes. A tiny
+``asrbn_tdnnf_wav2vec2`` serves as the ASR model too."""
 import dataclasses
 import json
 import os
@@ -192,3 +193,47 @@ def test_eval_anon_serve_mesh_on_one_device_runs_unsharded(tmp_path):
     assert eval_anon.main(["--device", "cpu", "--serve-mesh", "true",
                            "--results", str(tmp_path / "r")]) == 0
     assert json.loads((tmp_path / "r" / "results.json").read_text()) == {}
+
+
+def test_eval_anon_with_a_wav2vec2_asr_model(fx, tmp_path):
+    """The ASR model may be a wav2vec2 extractor (``asrbn_tdnnf_wav2vec2``),
+    as in satpu: the CLI gives it no lengths, and its dumped loglikes are
+    satpu's wav2vec2 net on the same padded batch (rel 1e-4), cut to the
+    fbank net's frame count as satpu's eval_anon cuts them."""
+    from satpu.models.asrbn import Wav2Vec2TDNNFNet as JNet
+    from satpu.models.asrbn import wav2vec2_tdnnf_config as jcfg
+    from satpu.models.wav2vec2 import Wav2Vec2Config as JW
+    from satpu.utils.scp_io import read_ark
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import eval_anon
+    from satpu_torch.models.asrbn import output_num_frames, wav2vec2_tdnnf_config
+    from satpu_torch.models.convert import from_satpu_variables
+
+    w2v = dict(conv_dim=(16, 16, 16), conv_kernel=(10, 8, 4), conv_stride=(5, 8, 8),
+               hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
+               num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=2)
+    cfg = dataclasses.replace(jcfg(fx["jnet"].cfg.output_dim), **ASR_TINY)
+    jnet = JNet(cfg, JW(**w2v))
+    v = satpu_init(jnet, np.zeros((1, 8000), np.float32), seed=3)
+    path = str(tmp_path / "w2v2.pt")
+    params = dict(dataclasses.asdict(dataclasses.replace(
+        wav2vec2_tdnnf_config(cfg.output_dim), **ASR_TINY)), wav2vec2=w2v)
+    infer_helper.save_model(path, "asrbn_tdnnf_wav2vec2", params, from_satpu_variables(v))
+    ark = tmp_path / "ll.ark"
+    rc = eval_anon.main(["--device", "cpu", "--data", fx["data"], "--asr-checkpoint", path,
+                         "--decode-graph", fx["graph"], "--words-txt", fx["words"],
+                         "--nbest", str(NBEST), "--lattice-beam", str(LATTICE_BEAM),
+                         "--batch-size", "3", "--dump-loglikes", str(ark),
+                         "--results", str(tmp_path / "r")])
+    assert rc == 0
+    res = json.loads((tmp_path / "r" / "results.json").read_text())
+    assert res["asr"]["words"] == 7 and np.isfinite(res["asr"]["wer"])
+    lls = dict(read_ark(str(ark)))
+    wav = np.zeros((len(TEXTS), 16000), np.float32)
+    for j, w in enumerate(fx["wavs"].values()):
+        wav[j, :len(w)] = w
+    ref, _ = satpu_apply(jnet, v, wav, train=False)
+    for j, (utt, w) in enumerate(fx["wavs"].items()):
+        n = output_num_frames(len(w))
+        assert lls[utt].shape == (n, ref.shape[2])
+        assert rel_err(lls[utt], np.asarray(ref)[j, :n]) <= 1e-4

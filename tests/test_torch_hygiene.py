@@ -1,6 +1,8 @@
 """satpu_torch stands alone: no file of the port (nor chip_smoke.py)
-imports jax, flax or satpu, importing its CLIs loads no jax, and its entry
-points refuse to run on the CPU unless asked to."""
+imports jax, flax or satpu, importing its CLIs loads no jax, its copies of
+satpu's numpy-only modules import no torch either (``COPIED``; ROADMAP
+"Copied so far"), and its entry points refuse to run on the CPU unless
+asked to (``prepare_data`` is host-only, as satpu's is)."""
 import ast
 import os
 import subprocess
@@ -11,6 +13,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "satpu")
+# the port's copies of satpu's numpy-only modules (whole, or the parts the
+# port needs); they run on the host
+COPIED = ("utils/kaldi_data.py", "utils/config.py", "utils/wer.py", "utils/scp_io.py",
+          "utils/feature_cache.py", "utils/schedules.py", "chain/fst.py", "chain/lattice.py",
+          "chain/decoder.py", "chain/hmm.py", "chain/prep.py", "bin/prepare_data.py",
+          "sidekit/scoring.py", "sidekit/dataset.py", "hifigan/dataset.py")
 
 
 def _port_files():
@@ -36,6 +44,12 @@ def test_no_jax_flax_or_satpu_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_modules_are_numpy_only(rel):
+    path = os.path.join(ROOT, "satpu_torch", rel)
+    assert "torch" not in set(_imported_roots(path)), rel
+
+
 def test_cli_import_leaves_jax_unloaded():
     code = ("import sys, satpu_torch.bin.anonymize, satpu_torch.bin.pipeline, "
             "satpu_torch.infer_helper, satpu_torch.bin.train_asr, satpu_torch.chain, "
@@ -45,7 +59,9 @@ def test_cli_import_leaves_jax_unloaded():
             "satpu_torch.hifigan.trainer, satpu_torch.hifigan.dataset, satpu_torch.ops.mel, "
             "satpu_torch.utils.feature_cache, satpu_torch.bin.train_asv, "
             "satpu_torch.sidekit.dataset, satpu_torch.sidekit.trainer, satpu_torch.ops.augment, "
-            "satpu_torch.utils.schedules\n"
+            "satpu_torch.utils.schedules, satpu_torch.bin.prepare_data, satpu_torch.chain.hmm, "
+            "satpu_torch.models.wav2vec2, satpu_torch.models.spkadv, "
+            "satpu_torch.models.torchlayers\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -98,4 +114,15 @@ def test_train_asv_defaults_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_asv.main(["--train-set", str(tmp_path / "data"), "--dirname", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()
+
+
+def test_train_asr_variants_default_to_cuda(monkeypatch, tmp_path):
+    from satpu_torch.bin import train_asr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for model in ("tdnnf_wav2vec2_vq", "tdnnf_spkadv", "tdnnf_dp"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_asr.main(["--model", model, "--dp-epsilon", "1.0",
+                            "--dirname", str(tmp_path / "exp")])
     assert not (tmp_path / "exp").exists()

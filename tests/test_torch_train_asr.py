@@ -1,11 +1,16 @@
 """The port's ``train_asr`` CLI on the CPU over a tiny chain fixture written
 with the port's own graph code (``prep.write_random_chain_corpus``: den
-graph, numerator FST ark, noise egs): checkpoints, resume, warm start and
-gradient accumulation, waveform augmentation, the final checkpoint served
-by ``infer_helper``; the egs loader and the bucket sampler against satpu's
-(the same batches in the same order for the same seed, and equal batch
-arrays, augmented or not); the options the slice does not port raise, and
-so does the default device on a machine without a card."""
+graph, numerator FST ark, noise egs, and a utt2spk over 3 speakers):
+checkpoints, resume, warm start and gradient accumulation, waveform
+augmentation, the final checkpoint served by ``infer_helper``; the egs
+loader and the bucket sampler against satpu's (the same batches in the
+same order for the same seed, and equal batch arrays, augmented or not);
+every model variant and option a few steps each (``tdnnf_dp``,
+``tdnnf_spkadv`` with ``adversarial`` and ``freeze_encoder``,
+``tdnnf_wav2vec2{,_vq,_dp}`` large and base with their wav2vec2 front
+shrunk for the CPU, ``compute_dtype = bfloat16``, transition-id graphs
+through ``trans_mdl``), their checkpoints loaded by ``infer_helper``; the
+default device raises on a machine without a card."""
 import json
 import os
 
@@ -15,6 +20,7 @@ import torch
 
 from satpu_torch.bin import train_asr
 from satpu_torch.chain.prep import write_random_chain_corpus
+from satpu_torch.utils import kaldi_data
 
 TINY = ["--model", "tdnnf_vq", "--codebook-size", "4", "--hidden-dim", "16",
         "--bottleneck-dim", "8", "--prefinal-bottleneck-dim", "8", "--minibatch-size", "2"]
@@ -26,7 +32,26 @@ def fixture(tmp_path_factory):
     fx = write_random_chain_corpus(root, n_utts=6, seconds=1.0, n_phones=4, succ_per_phone=2,
                                    seed=0, n_valid=2)
     fx["root"] = root
+    utts = sorted(kaldi_data.read_keyed_text(os.path.join(fx["data"], "utt2len")))
+    kaldi_data.write_keyed_text({u: f"spk{i % 3}" for i, u in enumerate(utts)},
+                                os.path.join(fx["data"], "utt2spk"))
     return fx
+
+
+# the wav2vec2 fronts the CLI builds, shrunk for the CPU (total stride 320,
+# as the real ones): large-style and base-style
+W2V_TINY = dict(conv_dim=(16, 16, 16), conv_kernel=(10, 8, 4), conv_stride=(5, 8, 8),
+                hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
+                num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=2)
+
+
+@pytest.fixture
+def tiny_wav2vec2(monkeypatch):
+    from satpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    monkeypatch.setattr(Wav2Vec2Config, "large", classmethod(lambda cls: cls(**W2V_TINY)))
+    monkeypatch.setattr(Wav2Vec2Config, "base", classmethod(lambda cls: cls(
+        **W2V_TINY, do_stable_layer_norm=False, feat_extract_norm="group", conv_bias=False)))
 
 
 def _args(fx, exp, *extra):
@@ -80,14 +105,91 @@ def test_cli_warm_start_and_gradient_accumulation(fixture, caplog):
     assert _steps(exp) == [1, 2, 3]
 
 
-@pytest.mark.parametrize("opt", [("--model", "tdnnf_dp"), ("--model", "tdnnf_wav2vec2_vq"),
+def _metrics(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _served(exp, model_id):
+    """final.ckpt loaded by infer_helper: (model, meta), its bottleneck on
+    1 s of audio finite."""
+    from satpu_torch import infer_helper
+
+    model, meta = infer_helper.load_model(os.path.join(exp, "final.ckpt"), device="cpu")
+    assert meta["model_id"] == model_id and meta["steps"] == 3
+    with torch.no_grad():
+        bn = model.eval().extract_bn(torch.zeros(1, 16000),
+                                     generator=torch.Generator().manual_seed(0))
+    assert bn.shape[-1] == 8 and torch.isfinite(bn).all()
+    return model, meta
+
+
+def _transition_id_graphs(fx, root):
+    """The fixture's numerators relabelled to transition ids of a
+    ``0.trans_mdl`` that the test writes through ``chain.hmm``: (trans_mdl,
+    fst scp)."""
+    from satpu_torch.chain.dataset import EgsInfo
+    from satpu_torch.chain.hmm import TransitionModel, chain_topology
+    from satpu_torch.chain.prep import write_fst_ark
+
+    P = fx["num_pdfs"]
+    tm = TransitionModel(chain_topology([1]), [(1, 0, 2 * k, 2 * k + 1) for k in range(P // 2)])
+    path = os.path.join(root, "0.trans_mdl")
+    with open(path, "wb") as f:
+        tm.write(f)
+    tid_of = {}
+    for tid, pdf in tm.pdf_map().items():
+        tid_of.setdefault(pdf, tid)
+    fsts = {}
+    for utt, rx in kaldi_data.read_wav_scp(fx["fst_scp"]).items():
+        g = EgsInfo(utt, "", rx, 0).load_fst()
+        for arcs in g.arcs:
+            for a in arcs:
+                if a.ilabel > 0:
+                    a.ilabel = a.olabel = tid_of[a.ilabel - 1]
+        fsts[utt] = g
+    scp = os.path.join(root, "tid_fst.scp")
+    write_fst_ark(fsts, os.path.join(root, "tid_fsts.ark"), scp)
+    return path, scp
+
+
+@pytest.mark.parametrize("opt", [("--model", "tdnnf_dp", "--dp-epsilon", "1.0"),
+                                 ("--model", "tdnnf_wav2vec2_vq"),
                                  ("--compute-dtype", "bfloat16"),
                                  ("--trans-mdl", "0.trans_mdl")],
                          ids=["dp", "wav2vec2", "bf16", "trans_mdl"])
-def test_unported_options_raise(fixture, opt):
-    exp = os.path.join(fixture["root"], "exp_unported")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_asr.main(_args(fixture, exp, *opt))
+def test_unported_options_raise(fixture, opt, tiny_wav2vec2):
+    """The options this test once held to NotImplementedError now train: 3
+    steps each, finite metrics, final.ckpt served. ``trans_mdl`` trains on
+    numerators over transition ids and logs the same metrics as the run on
+    the pdf-labelled graphs."""
+    exp = os.path.join(fixture["root"], "exp_" + opt[0][2:] + "_" + opt[1].replace(".", ""))
+    args = _args(fixture, exp, "--num-epochs", "1", *opt)
+    if opt[0] == "--trans-mdl":
+        mdl, scp = _transition_id_graphs(fixture, os.path.join(fixture["root"]))
+        args = _args(fixture, exp, "--num-epochs", "1", "--trans-mdl", mdl)
+        args[args.index("--fst-scp") + 1] = scp
+        base = os.path.join(fixture["root"], "exp_pdf_labels")
+        assert train_asr.main(_args(fixture, base, "--num-epochs", "1")) == 0
+    assert train_asr.main(args) == 0
+    logged = _metrics(exp)
+    assert [r["step"] for r in logged] == [1, 2, 3]
+    assert all(np.isfinite(r[k]) for r in logged for k in ("chain_objf", "loss", "vq_loss")
+               if k in r)
+    model_id = "asrbn_tdnnf_wav2vec2" if "wav2vec2" in opt[1] else "asrbn_tdnnf"
+    model, meta = _served(exp, model_id)
+    bp = meta["build_params"]
+    if opt[1] == "tdnnf_dp":
+        assert bp["bottleneck"] == "dp" and model.cfg.epsilon == 1.0
+    elif opt[1] == "tdnnf_wav2vec2_vq":
+        assert bp["bottleneck"] == "vq" and bp["wav2vec2"]["hidden_size"] == 16
+        assert tuple(bp["kernel_size_list"]) == (3, 3, 3)
+    elif opt[0] == "--compute-dtype":
+        assert bp["compute_dtype"] == "bfloat16"
+    else:
+        for ours, ref in zip(logged, _metrics(base)):
+            assert {k: v for k, v in ours.items() if k != "t"} == \
+                {k: v for k, v in ref.items() if k != "t"}
 
 
 def test_cli_trains_with_augmentation(fixture, tmp_path):
@@ -106,17 +208,43 @@ def test_cli_trains_with_augmentation(fixture, tmp_path):
 @pytest.mark.parametrize("opts", [
     ("--model", "tdnnf_spkadv", "--freeze-encoder", "true"),
     ("--model", "tdnnf_spkadv", "--adversarial", "false"),
-    ("--model", "tdnnf_dp", "--dp-epsilon", "2.0"),
+    ("--model", "tdnnf_wav2vec2_dp", "--dp-epsilon", "2.0"),
     ("--model", "tdnnf_wav2vec2", "--wav2vec2-size", "base")],
     ids=["freeze_encoder", "adversarial", "dp_epsilon", "wav2vec2_size"])
-def test_variant_options_parse_and_their_models_raise(fixture, opts):
+def test_variant_options_parse_and_their_models_raise(fixture, opts, tiny_wav2vec2):
+    """The variants' options parse, and their models (which this test once
+    held to NotImplementedError) train 3 steps and are served: the
+    speaker-adversarial net with its targets from utt2spk (frozen below its
+    heads with ``freeze_encoder``: those weights stay at the init), the
+    wav2vec2 nets with the DP bottleneck and the base-style front."""
+    from satpu_torch import infer_helper
     from satpu_torch.bin.train_asr import TrainAsrOpts
 
     parsed = TrainAsrOpts().load_from_args(list(opts))
     assert str(getattr(parsed, opts[2][2:].replace("-", "_"))).lower() in (opts[3], "2.0")
-    exp = os.path.join(fixture["root"], "exp_variant")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_asr.main(_args(fixture, exp, *opts))
+    exp = os.path.join(fixture["root"], "exp_variant_" + opts[2][2:])
+    assert train_asr.main(_args(fixture, exp, "--num-epochs", "1", *opts)) == 0
+    logged = _metrics(exp)
+    assert [r["step"] for r in logged] == [1, 2, 3]
+    model_id = ("asrbn_tdnnf_spkadv" if opts[1] == "tdnnf_spkadv" else "asrbn_tdnnf_wav2vec2")
+    model, meta = _served(exp, model_id)
+    bp = meta["build_params"]
+    if opts[1] == "tdnnf_spkadv":
+        assert bp["num_speakers"] == 3 and bp["adversarial"] == (opts[2] != "--adversarial")
+        assert all(np.isfinite(r["spkadv_loss"]) and 0 <= r["spkadv_accuracy"] <= 1
+                   for r in logged)
+    if opts[2] == "--freeze-encoder":
+        init = infer_helper.build_model(model_id, device="cpu", seed=0, **bp).state_dict()
+        got = model.state_dict()
+        trunk = [k for k in got if k.startswith("acoustic.") and ".weight" in k
+                 and not any(h in k for h in ("prefinal_", "chain_output", "xent_output"))]
+        assert trunk and all(torch.equal(got[k], init[k]) for k in trunk)
+        assert not torch.equal(got["asi_emb.weight"], init["asi_emb.weight"])
+    if opts[2] == "--dp-epsilon":
+        assert bp["bottleneck"] == "dp" and model.cfg.epsilon == 2.0
+    if opts[2] == "--wav2vec2-size":
+        assert bp["wav2vec2"]["feat_extract_norm"] == "group"
+        assert not bp["wav2vec2"]["do_stable_layer_norm"]
 
 
 def test_freeze_encoder_needs_spkadv(fixture):
