@@ -97,7 +97,27 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     step, audio-seconds per second, peak memory, the ``chain.<phase>``
     split, busy share and top device items; K2f/K2b held against their
     plain versions on this net's chain output (bitwise on repeat, one
-    launch a call) and timed against their bound.
+    launch a call) and timed against their bound;
+23. wavlm-eval: the ``asv_xvector`` WavLM-large + ECAPA-512 judge (24 x
+    1024 transformer, relative position buckets, ECAPA on its 1024-wide
+    weighted layer sum; random weights from seed 0, batch norms
+    calibrated) saved, and the ``eval_anon`` CLI on the card over the slice
+    phase's dirs (24 trials), then on the CPU: every x-vector (cosine >=
+    0.9999), the trial ranking and the EER held card against CPU;
+24. wavlm-throughput: that judge's chunked x-vectors at B=64 x 3 s, f32:
+    audio-seconds per second, busy share, launches, peak memory, top items;
+25. wavlm-train: ASV train steps of the judge with the head over 5994
+    speakers, B=64 x 3 s (halved until it fits), f32 and bf16 (satpu's
+    policy, the WavLM front included): ms per step, the ``asv.<phase>``
+    split, busy share, peak memory, top items; then a small-width step
+    held card against the CPU (10x the CPU f32's own departure from f64);
+26. distribution: a reference-format ``final.pt`` of the flagship's
+    weights through the ``import_model`` CLI into a fresh zoo, then
+    ``hub.load(tag + "+f0-transformation=quant_16")`` on the card (convert
+    held against the original checkpoint's), then ``anonymize --num-procs
+    2`` with the zoo checkpoint against one process (the same wavs, each of
+    its input's length, within bf16 serving's 2e-2), and a run whose shards
+    cannot start exits non-zero.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -164,6 +184,17 @@ ASV_SPEAKERS, ASV_HEAD = 16, 5994
 W2V2_PREP_CONFIG = "egs/asr/librispeech/configs/prepare_data.ini"
 W2V2_CONFIG = "egs/asr/librispeech/configs/tdnnf_wav2vec2_vq_48.ini"
 SPKADV_CONFIG = "egs/asr/librispeech/configs/tdnnf_spkadv.ini"
+# the WavLM-large + ECAPA-512 judge (XVectorConfig's defaults otherwise), the
+# small one of the card-vs-CPU step, and the distribution phase's zoo tag
+WAVLM_ASV = {"frontend": "wavlm"}
+WAVLM_TINY = {"frontend": "wavlm", "num_speakers": 10, "channels": 32, "embedding_size": 16,
+              "wavlm": {"conv_dim": [16, 16, 16], "conv_kernel": [10, 8, 4],
+                        "conv_stride": [5, 8, 8], "hidden_size": 32, "num_hidden_layers": 2,
+                        "num_attention_heads": 4, "intermediate_size": 64,
+                        "num_conv_pos_embeddings": 16, "num_conv_pos_embedding_groups": 4,
+                        "num_buckets": 32, "max_bucket_distance": 50,
+                        "feat_extract_norm": "layer", "conv_bias": True}}
+DIST_TAG = "hifigan_bn_tdnnf_600h_vq_48_v1"
 
 
 def check(ok: bool, what: str) -> None:
@@ -1059,7 +1090,7 @@ def calibrate_norms(np, torch, model):
              if isinstance(getattr(m, "running_var", None), torch.Tensor)]
     wavs = np.stack([voiced_utterance(np, 3.0, 90.0 + 20 * k, seed=200 + k)[0] for k in range(8)])
     with torch.no_grad():
-        model(torch.from_numpy(wavs))
+        model(torch.from_numpy(wavs).to(next(model.parameters()).device))
     for h in hooks:
         h.remove()
     return len(hooks)
@@ -2184,6 +2215,398 @@ def phase_w2v2_throughput(np, torch, fx, card):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# The WavLM-large x-vector front (eval_anon, ASV training) and model
+# distribution (a reference final.pt -> import_model -> hub -> anonymize)
+# ---------------------------------------------------------------------------
+
+
+def device_rows(prof, iters: int):
+    """[(device us per call, launches per call, name)] of a profile, largest
+    first."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / iters, e.count // iters, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  reverse=True)
+
+
+def phase_wavlm_eval(np, torch, card):
+    """The eval_anon CLI with the WavLM-large + ECAPA-512 judge, on the card
+    and then on the CPU, over the slice phase's dirs (original enrolment,
+    anonymized trials: 24 trials); every x-vector the CLI extracts is kept
+    (``extract_xvectors`` wrapped) to compare the devices. Returns the
+    checkpoint's path."""
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import eval_anon
+    from satpu_torch.sidekit import scoring, trainer
+    from satpu_torch.utils import kaldi_data
+
+    root = os.path.join(WORK, "wavlm")
+    os.makedirs(root)
+    path = os.path.join(root, "asv_wavlm.pt")
+    t0 = time.perf_counter()
+    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0, **WAVLM_ASV)
+    c, w = model.cfg, model.preprocessor.feature_extract.cfg
+    check((c.arch, c.channels, c.embedding_size, c.num_speakers, c.arc_s, c.arc_m, w.hidden_size,
+           w.num_hidden_layers, w.num_attention_heads, w.intermediate_size, w.num_buckets,
+           w.max_bucket_distance, w.do_stable_layer_norm, w.feat_extract_norm, w.conv_bias,
+           w.num_conv_pos_embeddings, w.num_conv_pos_embedding_groups, w.conv_dim[0])
+          == ("ecapa", 512, 192, 1211, 30.0, 0.2, 1024, 24, 16, 4096, 320, 800, True, "layer",
+              True, 128, 16, 512), "WavLM-large + ECAPA-512 widths")
+    norms = calibrate_norms(np, torch, model)
+    n = sum(v.numel() for v in model.state_dict().values())
+    n_front = sum(p.numel() for p in model.preprocessor.parameters())
+    infer_helper.save_model(path, "asv_xvector", WAVLM_ASV, model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    print(f"[wavlm-eval] asv_xvector {WAVLM_ASV} (WavLM-large: 24 x 1024, 16 heads, FFN 4096,"
+          f" 320 buckets over 800, pre-norm, layer-norm extractor; ECAPA-512 on 1024 channels,"
+          f" 192-d, ArcMargin over 1211): {n / 1e6:.2f} M weights ({n_front / 1e6:.2f} M in the"
+          f" front) from seed 0, {norms} batch norms calibrated, saved in"
+          f" {time.perf_counter() - t0:.1f} s")
+
+    data, anon = os.path.join(WORK, "data"), os.path.join(WORK, "data_anon")
+    utt2spk = kaldi_data.read_keyed_text(os.path.join(data, "utt2spk"))
+    anon_utts = sorted(kaldi_data.read_wav_scp(os.path.join(anon, "wav.scp")))
+    speakers = list(dict.fromkeys(utt2spk[u] for u in kaldi_data.read_wav_scp(
+        os.path.join(data, "wav.scp"))))  # the CLI's enrolment order
+    trials = [(s, u, utt2spk[u] == s) for u in anon_utts for s in sorted(speakers)]
+    trials_path = os.path.join(root, "trials")
+    with open(trials_path, "w") as f:
+        f.writelines(f"{s} {u} {'target' if t else 'nontarget'}\n" for s, u, t in trials)
+    real = trainer.extract_xvectors
+    calls = []
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(out)
+        return out
+
+    def run(device):
+        res = os.path.join(root, f"results_{device}")
+        calls.clear()
+        trainer.extract_xvectors = recorded
+        t0 = time.perf_counter()
+        try:
+            rc = eval_anon.main([
+                "--device", device, "--data", anon, "--asv-checkpoint", path,
+                "--enroll-dir", data, "--trials", trials_path, "--xvector-mode", "chunked",
+                "--results", res])
+        finally:
+            trainer.extract_xvectors = real
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"eval_anon with the WavLM judge on {device} exited {rc}")
+        with open(os.path.join(res, "results.json")) as f:
+            asv = json.load(f)["asv"]
+        # asv_test: one call per enrolment speaker, then the trial utterances
+        check(len(calls) == len(speakers) + 1, f"{len(calls)} x-vector calls")
+        means = {s: x.mean(0) / max(np.linalg.norm(x.mean(0)), 1e-12)
+                 for s, x in zip(speakers, calls)}
+        utt = dict(zip(list(dict.fromkeys(u for _, u, _ in trials)), calls[-1]))
+        scores = scoring.cosine_scoring(np.stack([means[s] for s, _, _ in trials]),
+                                        np.stack([utt[u] for _, u, _ in trials]))
+        return asv, wall, np.concatenate(calls), scores
+
+    asv, wall, xv, scores = run("cuda")
+    print(f"[wavlm-eval] eval_anon CLI on cuda: {len(anon_utts)} anonymized utterances,"
+          f" {len(trials)} trials ({sum(t for *_, t in trials)} target), chunked x-vectors, in"
+          f" {wall:.2f} s (first call, cold) [{card}]")
+    print(f"[wavlm-eval]   asv {json.dumps(asv)}")
+    check(all(np.isfinite(v) for v in asv.values()) and 0 <= asv["eer"] <= 100
+          and "asnorm_eer" in asv, f"asv results {asv}")
+    check(xv.shape[1] == 192 and bool(np.isfinite(xv).all()), "WavLM x-vectors")
+    asv_cpu, wall_cpu, xv_cpu, scores_cpu = run("cpu")
+    cos = float(((xv * xv_cpu).sum(1) / np.linalg.norm(xv, axis=1)
+                 / np.linalg.norm(xv_cpu, axis=1)).min())
+    same_rank = bool((np.argsort(scores, kind="stable")
+                      == np.argsort(scores_cpu, kind="stable")).all())
+    distinct = np.unique(scores_cpu)
+    gap = float(np.diff(distinct).min()) if len(distinct) > 1 else float("inf")
+    print(f"[wavlm-eval] cuda vs cpu (f32, TF32 off; the CPU CLI {wall_cpu:.2f} s): x-vector"
+          f" cosine min {cos:.7f} over {len(xv)} rows ({len(np.unique(xv_cpu, axis=0))} distinct"
+          f" on the CPU); trial ranking equal {same_rank} (score max abs diff"
+          f" {float(np.abs(scores - scores_cpu).max()):.3e}, {len(distinct)} distinct scores of"
+          f" {len(trials)}, smallest gap {gap:.3e}); EER {asv['eer']:.4f} vs"
+          f" {asv_cpu['eer']:.4f}; ASV metrics max abs diff"
+          f" {max(abs(asv[k] - asv_cpu[k]) for k in asv):.3e}")
+    check(cos >= 0.9999, "the card's WavLM x-vectors depart from the CPU path")
+    check(same_rank, "the card ranks the trials differently from the CPU path")
+    check(asv["eer"] == asv_cpu["eer"], "the card's EER differs from the CPU path's")
+    return path
+
+
+def phase_wavlm_throughput(np, torch, card, path):
+    """x-vector extraction with the WavLM judge on the card: chunked, B=64
+    windows of 3 s, f32 (TF32 off): audio-seconds per second, ms a batch,
+    device ms and busy share, launches, peak memory, the top device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.sidekit.trainer import extract_xvectors
+
+    rng = np.random.default_rng(8)
+    model, _ = infer_helper.load_model(path)
+    windows = list((rng.standard_normal((64, 3 * SR)) * 0.1).astype(np.float32))
+    extract_xvectors(model, windows)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        xv = extract_xvectors(model, windows)
+    wall = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(xv.shape == (64, 192) and bool(np.isfinite(xv).all()), "WavLM x-vector batch")
+    span, dev, launches = busy_share(torch, lambda: extract_xvectors(model, windows))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        extract_xvectors(model, windows)
+        torch.cuda.synchronize()
+    rows = device_rows(prof, 1)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"[wavlm-throughput] x-vectors, WavLM-large + ECAPA-512, chunked, B=64 windows of 3 s,"
+          f" f32: {64 * 3.0 / wall:.1f} audio-s/s ({wall * 1e3:.1f} ms a batch, host clock);"
+          f" device {dev:.1f} of {span:.1f} ms = {dev / span:.0%} busy, {launches} launches;"
+          f" peak mem {peak:.2f} GiB [{card}]")
+    for dev_us, count, key in rows[:5]:
+        print(f"[wavlm-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
+              f" x{count:<5d} {key[:90]}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def wavlm_train_steps(np, torch, model, B: int, dtype: str, iters: int):
+    """A trainer of ``model`` (a fresh AdamW) at B x 3 s: 2 warm-up steps and
+    ``iters`` timed ones. Returns (trainer, batch, ms/step, peak GiB, last
+    metrics)."""
+    from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
+
+    rng = np.random.default_rng(9)
+    trainer = AsvTrainer(model, make_asv_optimizer(model), compute_dtype=dtype)
+    batch = (torch.from_numpy((rng.standard_normal((B, 3 * SR)) * 0.1).astype(np.float32)
+                              ).cuda(),
+             torch.from_numpy(rng.integers(0, ASV_HEAD, B)).cuda(),
+             torch.Generator(device="cuda").manual_seed(0))
+    for _ in range(2):
+        trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    return trainer, batch, wall, torch.cuda.max_memory_allocated() / 2**30, metrics
+
+
+def phase_wavlm_train(np, torch, card):
+    """ASV train steps of the WavLM-large + ECAPA-512 judge with the head over
+    VoxCeleb2 dev's 5994 speakers, B=64 x 3 s (halved until it fits), f32
+    then bf16 (satpu's policy, the front included; the same model, a fresh
+    optimizer), 4 timed steps each after 2 of warm-up: ms per step,
+    audio-seconds per second, peak memory, then a profile of 4 steps: the
+    ``asv.<phase>`` split (host / device ms), the busy share, launches and
+    the top items. Then one small-width step (a 2-layer, 32-wide WavLM,
+    ECAPA 32) on the card against the CPU."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.sidekit.trainer import PHASES
+
+    iters = 4
+    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                     num_speakers=ASV_HEAD, **WAVLM_ASV)
+    for dtype in ("float32", "bfloat16"):
+        B = 64
+        while True:
+            try:
+                trainer, batch, wall, peak, metrics = wavlm_train_steps(np, torch, model, B,
+                                                                        dtype, iters)
+                break
+            except torch.cuda.OutOfMemoryError:
+                trainer = batch = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[wavlm-train]   B={B} {dtype} does not fit in the card's memory")
+            B //= 2
+            check(B >= 8, "the WavLM train step does not fit at B=8")
+        check(bool(torch.isfinite(metrics["loss"])), f"WavLM ASV loss not finite ({dtype})")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                trainer.train_step(*batch)
+            torch.cuda.synchronize()
+        host, dev = train_split(prof, iters, prefix="asv.", phases=PHASES)
+        rows = device_rows(prof, iters)
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"[wavlm-train] B={B} x 3 s, {dtype}, WavLM-large + ECAPA-512 + ArcMargin over"
+              f" {ASV_HEAD} speakers: {wall * 1e3:.1f} ms/step (host clock),"
+              f" {B * 3.0 / wall:.1f} audio-s/s; peak mem {peak:.2f} GiB; loss"
+              f" {float(metrics['loss']):.4f} [{card}]")
+        print(f"[wavlm-train]   profiled split ms/step, host / device: "
+              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
+              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
+              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
+              f" {sum(r[1] for r in rows)} launches")
+        for dev_us, count, key in rows[:5]:
+            print(f"[wavlm-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
+                  f" x{count:<5d} {key[:90]}")
+        del trainer, batch, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    wavlm_train_cpu(np, torch)
+
+
+def wavlm_train_cpu(np, torch):
+    """One small-width WavLM-ECAPA train step (WAVLM_TINY, B=8 x 8000
+    samples, f32, TF32 off) on the card against the port's CPU path from the
+    same weights and batch: the loss (rel 1e-4), and the gradients and new
+    batch-norm statistics held, all tensors together, to the CPU's f64 ones
+    in relative L2 within 10 times the CPU f32's own departure (1e-4 at
+    least), as asv-cpu holds the mel trunks."""
+    import copy
+
+    from satpu_torch import infer_helper
+    from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
+
+    rng = np.random.default_rng(10)
+    wav = torch.from_numpy((rng.standard_normal((8, 8000)) * 0.1).astype(np.float32))
+    target = torch.arange(8) % 10
+    cpu = infer_helper.build_model("asv_xvector", device="cpu", seed=3, **WAVLM_TINY)
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
+        model = copy.deepcopy(cpu).to(dev, dtype)
+        trainer = AsvTrainer(model, make_asv_optimizer(model, lr=1e-3))
+        m = trainer.train_step(wav.to(dev, dtype), target.to(dev))
+        out[dev, dtype] = (
+            float(m["loss"]), {n: p.grad.cpu().double() for n, p in model.named_parameters()},
+            {k: v.cpu().double() for k, v in model.state_dict().items() if "running" in k})
+    (l_c, g_c, s_c), (l_g, g_g, s_g) = out["cpu", torch.float32], out["cuda", torch.float32]
+    _, g_64, s_64 = out["cpu", torch.float64]
+
+    def l2(a, b):
+        return float(sum(float(((a[k] - b[k]) ** 2).sum()) for k in b) ** 0.5
+                     / sum(float((b[k] ** 2).sum()) for k in b) ** 0.5)
+
+    l_rel = abs(l_g - l_c) / abs(l_c)
+    dg_card, dg_cpu = l2(g_g, g_64), l2(g_c, g_64)
+    ds_card, ds_cpu = l2(s_g, s_64), l2(s_c, s_64)
+    print(f"[wavlm-train-cpu] small WavLM-ECAPA step, f32, TF32 off, batch statistics: loss card"
+          f" {l_g:.6f} vs CPU {l_c:.6f}, rel {l_rel:.3e} (tolerance 1e-4); relative L2 distance"
+          f" to the CPU's f64 over {len(g_64)} gradients: card {dg_card:.3e}, CPU f32"
+          f" {dg_cpu:.3e}; over {len(s_64)} batch-norm statistics: card {ds_card:.3e}, CPU f32"
+          f" {ds_cpu:.3e} (tolerance 10x the CPU's, 1e-4 at least)")
+    check(l_rel <= 1e-4, "card WavLM loss departs from the CPU path")
+    check(dg_card <= max(10 * dg_cpu, 1e-4), "card WavLM gradients depart from the CPU's")
+    check(ds_card <= max(10 * ds_cpu, 1e-4), "card WavLM statistics depart from the CPU's")
+
+
+def reference_name(key: str) -> str:
+    """A port anonymizer key -> the reference's (the names satpu's importer
+    reads): TDNN-F Sequential index k -> 2k (a dropout follows every layer),
+    the VQ's ``vq.*`` -> ``quant._*``."""
+    key = re.sub(r"\b(tdnnfs|tdnnfs_after)\.(\d+)\.",
+                 lambda m: f"{m.group(1)}.{2 * int(m.group(2))}.", key)
+    for new, old in (("vq.embedding", "quant._embedding.weight"),
+                     ("vq.ema_cluster_size", "quant._ema_cluster_size"),
+                     ("vq.ema_w", "quant._ema_w")):
+        key = key.replace("bottleneck_func." + new, "bottleneck_func." + old)
+    return key
+
+
+def phase_distribution(np, torch, card, ckpt):
+    """A reference-format final.pt of the flagship anonymizer's weights ->
+    the import_model CLI into a fresh zoo -> ``hub.load(tag +
+    "+f0-transformation=quant_16")`` on the card, its convert held against
+    the original checkpoint's -> ``anonymize --num-procs 2`` with the zoo
+    checkpoint over the slice's 8 utterances against one process; then a
+    run whose shards cannot start must exit non-zero."""
+    from satpu_torch import hub, infer_helper
+    from satpu_torch.bin import anonymize, import_model
+    from satpu_torch.utils import kaldi_data
+
+    root = os.path.join(WORK, "dist")
+    os.makedirs(root)
+    final = os.path.join(root, "final.pt")
+    t0 = time.perf_counter()
+    _, sd = infer_helper.read_checkpoint(ckpt)
+    torch.save({"base_model_state_dict": {reference_name(k): v for k, v in sd.items()},
+                "base_model_params": {"utt2spk": {f"ref{i:03d}": s
+                                                  for i, s in enumerate(SPEAKERS)}}}, final)
+    t_write = time.perf_counter() - t0
+    saved = os.environ.get("SATPU_ZOO")
+    os.environ["SATPU_ZOO"] = os.path.join(root, "zoo")
+    try:
+        t0 = time.perf_counter()
+        rc = import_model.main(["--torch-checkpoint", final, "--tag", DIST_TAG])
+        t_import = time.perf_counter() - t0
+        check(rc == 0, f"import_model exited {rc}")
+        zoo_ckpt = hub.resolve(DIST_TAG)
+        t0 = time.perf_counter()
+        model, meta = hub.load(DIST_TAG + "+f0-transformation=quant_16")
+        t_load = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("SATPU_ZOO")
+        else:
+            os.environ["SATPU_ZOO"] = saved
+    ref, _ = infer_helper.load_model(ckpt, option_args={"f0_transformation": "quant_16"})
+    check(model.cfg == ref.cfg and meta["speakers"] == SPEAKERS,
+          f"imported config {model.cfg} / {len(meta['speakers'])} speakers")
+    wav = torch.from_numpy(np.stack([voiced_utterance(np, 2.0, f, seed=700 + i)[0]
+                                     for i, f in enumerate((110.0, 190.0))])).cuda()
+    tid = torch.tensor([3, 200], device="cuda")
+    with torch.inference_mode():
+        f0 = model.get_f0(wav)
+        out, want = model.convert(wav, f0, tid), ref.convert(wav, f0, tid)
+    conv_err = float((out - want).abs().max() / want.abs().max())
+    print(f"[distribution] reference final.pt of the flagship ({len(sd)} tensors) written in"
+          f" {t_write:.1f} s; import_model --tag {DIST_TAG} in {t_import:.1f} s; hub.load(tag"
+          f" +f0-transformation=quant_16) on cuda in {t_load:.1f} s: {meta['model_id']},"
+          f" {len(meta['speakers'])} speakers; its convert vs the original checkpoint's on 2 x"
+          f" 2 s: max rel {conv_err:.3e} (tolerance 1e-6) [{card}]")
+    check(bool(torch.isfinite(out).all()) and conv_err <= 1e-6,
+          "the imported model's convert departs from the original's")
+    del model, ref, wav, f0, out, want
+    torch.cuda.empty_cache()
+
+    data = os.path.join(WORK, "data")
+    common = ["--checkpoint", zoo_ckpt, "--directory", data, "--batch-size", "1",
+              "--target-constant-spkid", SPEAKERS[7]]
+    walls, wavs = {}, {}
+    for name, extra in (("one", []), ("procs", ["--num-procs", "2"])):
+        t0 = time.perf_counter()
+        rc = anonymize.main(common + ["--new-datadir-suffix", f"_{name}"] + extra)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"anonymize ({name}) exited {rc}")
+        scp = kaldi_data.read_wav_scp(os.path.join(data + f"_{name}", "wav.scp"))
+        wavs[name] = {u: kaldi_data.load_wav_from_scp(p)[0][0] for u, p in scp.items()}
+    inputs = kaldi_data.read_wav_scp(os.path.join(data, "wav.scp"))
+    check(sorted(wavs["procs"]) == sorted(wavs["one"]) == sorted(inputs),
+          "--num-procs 2 wrote another set of wavs")
+    rel = 0.0
+    for u, x in wavs["procs"].items():
+        n = len(kaldi_data.load_wav_from_scp(inputs[u])[0][0])
+        check(len(x) == n and bool(np.isfinite(x).all()), f"{u}: {len(x)} samples, not {n}")
+        y = wavs["one"][u]
+        rel = max(rel, float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)))
+    t0 = time.perf_counter()
+    rc_fail = anonymize.main(["--checkpoint", os.path.join(root, "missing.pt"), "--directory",
+                              data, "--num-procs", "2", "--new-datadir-suffix", "_fail"])
+    t_fail = time.perf_counter() - t0
+    print(f"[distribution] anonymize with the zoo checkpoint, --batch-size 1, constant target:"
+          f" one process {walls['one']:.1f} s, --num-procs 2 {walls['procs']:.1f} s (two shard"
+          f" processes on the card); {len(wavs['procs'])} wavs of their inputs' lengths, max"
+          f" rel to one process {rel:.3e} (tolerance 2e-2, bf16 serving); shards that cannot"
+          f" start: exit {rc_fail} in {t_fail:.1f} s [{card}]")
+    check(rel <= 2e-2, "--num-procs 2 departs from one process")
+    check(rc_fail != 0, "a run whose shards fail exited 0")
+
+
 def main() -> int:
     import torch
 
@@ -2205,22 +2628,35 @@ def main() -> int:
         phase_kernel(np, torch)
         print(f"[done] kernel phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    clock = [t_start]
+
+    def lap(path: str) -> None:
+        """Print the wall time since the last lap: each path's share of the
+        script's time limit."""
+        now = time.perf_counter()
+        print(f"[time] {path}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     phase_build()
+    lap("build")
     # serving: anonymize (kernel K1)
     entries = [phase_kernel(np, torch)]
     launches, ckpt = phase_slice(np, torch)
     phase_cpu(np, torch, ckpt)
     phase_throughput(torch, ckpt, card)
     phase_profile(torch, ckpt, card)
+    lap("serving")
     # chain training: train_asr (kernels K2f, K2b)
     entries += phase_den_kernel(np, torch, den_graph())
     train_launches, fx = phase_train(np, torch)
     launches.update(train_launches)
     phase_train_cpu(np, torch)
     phase_train_throughput(np, torch, fx, card)
+    lap("chain training")
     # evaluation: eval_anon over the slice phase's output (no kernel of its own)
     graph, paths = phase_eval(np, torch, card)
     phase_eval_throughput(np, torch, graph, paths, card)
+    lap("evaluation")
     # GAN training: train_vc (its feature warm-up runs kernel K1)
     gan_launches, gan_shc_err = phase_gan(np, torch, card)
     print(f"[kernels] shc_band launches by path: anonymize {launches['shc_band']}, train_vc"
@@ -2230,12 +2666,15 @@ def main() -> int:
     shc["max_abs_err"] = max(shc["max_abs_err"], gan_shc_err)
     phase_gan_cpu(np, torch)
     phase_gan_throughput(np, torch, card)
+    lap("GAN training")
     # ASV training: train_asv (no kernel of its own)
     phase_asv(np, torch, card)
     phase_asv_cpu(np, torch)
     phase_asv_throughput(np, torch, card)
+    lap("ASV training")
     # the card's fbank on the slice phase's near-constant anonymized output
     fbank_cmvn_check(np, torch)
+    lap("fbank")
     # ASR-BN variants: prepare_data -> train_asr of the B5 extractor (K2f, K2b)
     w2v2_launches = phase_w2v2_train(np, torch, card)
     phase_w2v2_cpu(np, torch)
@@ -2247,6 +2686,15 @@ def main() -> int:
         for name in w2v2_launches) + " (their sums in the kernels line)")
     for name, n in w2v2_launches.items():
         launches[name] += n
+    lap("B5 chain training")
+    # the WavLM-large judge: eval_anon and ASV training (no kernel of its own)
+    wavlm_ckpt = phase_wavlm_eval(np, torch, card)
+    phase_wavlm_throughput(np, torch, card, wavlm_ckpt)
+    phase_wavlm_train(np, torch, card)
+    lap("WavLM judge")
+    # model distribution: reference final.pt -> import_model -> hub -> anonymize --num-procs
+    phase_distribution(np, torch, card, ckpt)
+    lap("distribution")
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

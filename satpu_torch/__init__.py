@@ -13,9 +13,9 @@ one against it on the same weights and inputs.
                          hand-written CUDA kernel ``csrc/shc.cu``), the
                          waveform and SpecAugment augmentations.
 - ``satpu_torch.models`` TDNN-F ASR-BN extractor (inference and training),
-                         HiFi-GAN generator and discriminators, the
-                         anonymizer, and the weight bridge from satpu
-                         variables.
+                         its wav2vec2 front, HiFi-GAN generator and
+                         discriminators, the anonymizer, the WavLM encoder,
+                         and the weight bridge from satpu variables.
 - ``satpu_torch.hifigan`` GAN training data (cached features, aligned
                          crops) and the GAN trainer.
 - ``satpu_torch.chain``  FST, den-graph and decoding-graph code, the chain
@@ -25,14 +25,19 @@ one against it on the same weights and inputs.
 - ``satpu_torch.native`` the C++ lattice decoder (satpu's ``decoder.cc``,
                          built with g++ at first use), bound with ctypes.
 - ``satpu_torch.sidekit`` x-vector models (ECAPA-TDNN, half-ResNet), their
-                         frontends and training heads, the training data
-                         and trainer, x-vector extraction and trial scoring.
+                         frontends (log-mel, MFCC, WavLM) and training
+                         heads, the training data and trainer, x-vector
+                         extraction and trial scoring.
 - ``satpu_torch.utils``  kaldi data dirs, INI/dataclass options,
-                         checkpoints, metrics log, learning-rate schedules,
-                         the CUDA build helper, WER and the kaldi ark writer.
+                         checkpoints (and a reader of satpu's), metrics log,
+                         learning-rate schedules, the CUDA build helper, WER,
+                         the kaldi ark writer and fail-fast job fan-out.
+- ``satpu_torch.hub``    the model zoo: tags (with option args) to
+                         checkpoints under ``$SATPU_ZOO``.
 - ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, the
-                         ``train_asr``, ``train_vc``, ``train_asv`` and
-                         ``eval_anon`` CLIs.
+                         ``train_asr``, ``train_vc``, ``train_asv``,
+                         ``eval_anon``, ``prepare_data`` and ``import_model``
+                         CLIs.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
 when CUDA is absent rather than falling back. Evaluation on the card:

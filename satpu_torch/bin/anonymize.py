@@ -2,7 +2,11 @@
 
 Config: INI with ``${:var}`` interpolation, an ``[anonymize]`` section with
 the same keys as the flags. Runs on ``--device`` (default ``cuda``; raises
-when CUDA is absent unless ``--device cpu`` is given).
+when CUDA is absent unless ``--device cpu`` is given). ``--num-procs N``
+runs the dir as N shard processes (``--num-shards N --shard k``, the same
+other arguments, so all on ``--device``), as the reference forks a process
+per job (bin/anonymize:82-93); when one fails the others are terminated
+and the run exits non-zero.
 
 Usage:
   python -m satpu_torch.bin.anonymize --checkpoint model.pt --directory data/X
@@ -31,13 +35,42 @@ class AnonymizeOpts(cfg.Opts):
     seed: int = 0
     num_shards: int = 1
     shard: int = 0
-    # local process fan-out over num_procs shards (not ported: ROADMAP item 8)
+    # local process fan-out: num_procs shard processes, fail-fast
     num_procs: int = 1
     # serving compute dtype override
     compute_dtype: str = "bfloat16"
     # batches sharded over all local cards (not ported: ROADMAP item 15)
     serve_mesh: bool = False
     device: str = "cuda"
+
+
+def run_shards(argv, num_procs: int) -> int:
+    """The command line ``argv`` as ``num_procs`` shard processes of this
+    CLI (``--num-procs`` dropped; ``--num-shards`` / ``--shard`` appended,
+    so they override), fail-fast. Returns 0, or the first shard's positive
+    return code (the siblings it took down return a signal's negative
+    one; 1 when every failure was a signal)."""
+    from ..utils.jobs import run_parallel_failfast
+
+    base, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a.startswith("--num-procs"):
+            skip = "=" not in a
+        else:
+            base.append(a)
+    cmds = [[sys.executable, "-m", "satpu_torch.bin.anonymize", *base,
+             "--num-shards", str(num_procs), "--shard", str(k)] for k in range(num_procs)]
+    # the children import this package from any working directory
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    rcs = run_parallel_failfast(cmds, env=env)
+    if all(rc == 0 for rc in rcs):
+        return 0
+    logging.error("shard return codes %s", rcs)
+    return next((rc for rc in rcs if rc > 0), 1)
 
 
 def main(argv=None):
@@ -57,9 +90,7 @@ def main(argv=None):
         print("need --checkpoint and --directory", file=sys.stderr)
         return 2
     if opts.num_procs > 1:
-        raise NotImplementedError("--num-procs (a process per shard) is not ported to "
-                                  "satpu_torch yet (ROADMAP item 8); run one process per "
-                                  "--shard of --num-shards instead")
+        return run_shards(argv if argv is not None else sys.argv[1:], opts.num_procs)
     if opts.serve_mesh:
         raise NotImplementedError("--serve-mesh (batches sharded over several cards) is not "
                                   "ported to satpu_torch yet (ROADMAP item 15)")

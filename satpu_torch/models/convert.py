@@ -51,6 +51,12 @@ kernels [in, out]) become the torch GRU's ``gru.weight_ih_l<k>`` /
 ``weight_hh_l<k>`` (gates r, z, n stacked, [3 out, in]) and ``bias_ih_l<k>``
 / ``bias_hh_l<k>`` (the state's r and z gates have no bias in flax: zeros).
 ``ChannelWiseCorrPooling``'s ``proj`` / ``proj_bias`` keep their names.
+A WavLM frontend's ``preprocessor/feature_extract`` tree maps as a
+wav2vec2 front does (``from_satpu_wavlm``: its attention's
+``gru_rel_pos_linear`` and ``gru_rel_pos_const`` keep their names, layer
+0's ``rel_attn_embed`` becomes ``rel_attn_embed.weight``) under
+``preprocessor.feature_extract.``, and ``preprocessor/feature_weight``
+keeps its name.
 """
 from __future__ import annotations
 
@@ -129,6 +135,8 @@ def _hifigan_key(path: Tuple[str, ...]) -> str:
 
 
 def _tensor(path: Tuple[str, ...], arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):  # a bf16 leaf of a satpu checkpoint
+        arr = arr.float().numpy()
     a = np.array(arr, dtype=np.float32)  # a writable copy
     if path[-1] == "bias" and a.ndim == 2 and a.shape[0] == 1:
         a = a[0].copy()  # affine bias [1, out] -> [out]
@@ -214,12 +222,30 @@ def _gru_tensors(prefix: str, layer: str, cell: Mapping) -> Dict[str, torch.Tens
             for k, v in arrays.items()}
 
 
+def _wavlm_key(path: Tuple[str, ...]) -> str:
+    """A satpu ``WavLMModel`` param path -> the port's (HF) name: the
+    wav2vec2 map, and the bucket embedding's leaf as an embedding weight."""
+    key = _wav2vec2_key(path)
+    return key + ".weight" if path[-1] == "rel_attn_embed" else key
+
+
+def from_satpu_wavlm(params: Mapping) -> Dict[str, torch.Tensor]:
+    """satpu ``WavLMModel`` params -> ``models.wavlm.WavLMModel``'s
+    state_dict."""
+    return {_wavlm_key(path): _tensor(path, leaf) for path, leaf in _flatten(params)}
+
+
 def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:
     """satpu x-vector variables {params, batch_stats} -> torch state_dict."""
     out = {}
     for coll in ("params", "batch_stats"):
         cells: Dict[Tuple[str, ...], Dict] = {}
         for path, leaf in _flatten(variables.get(coll) or {}):
+            if path[0] == "preprocessor":  # the WavLM frontend
+                key = ("preprocessor.feature_weight" if path[1] == "feature_weight" else
+                       "preprocessor.feature_extract." + _wavlm_key(path[2:]))
+                out[key] = _tensor(path, leaf)
+                continue
             *scopes, name = path
             gru = [i for i, p in enumerate(scopes) if _GRU_CELL.match(p)]
             if gru:  # a GruPooling cell: gathered, then stacked below

@@ -10,9 +10,9 @@ reference satools/satools/sidekit/{model,objf,monitor}.py).
   ``make_asv_train_step``): the learning rate set to ``lr_schedule(step)``
   before the step, the forward in training mode (batch-statistics batch
   norm, SpecAugment masks from the caller's generator, satpu's bf16 policy
-  with ``compute_dtype="bfloat16"``), the backward, the AdamW step. Its
-  phases are ``torch.profiler.record_function`` ranges ``asv.<phase>``
-  (``PHASES``);
+  over the frontend and the trunk with ``compute_dtype="bfloat16"``), the
+  backward, the AdamW step. Its phases are ``torch.profiler.record_function``
+  ranges ``asv.<phase>`` (``PHASES``);
 - ``TrainingMonitor``: patience / best-EER tracking (monitor.py:10-252);
 - ``extract_xvectors``: per-utterance x-vectors on the model's device, full
   utterances one at a time or fixed windows in batches;
@@ -76,7 +76,9 @@ class AsvTrainer:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
         model = self.model.train()
-        with record_function("asv.frontend"):
+        # the frontend under the policy too: WavLM's convs and linears are
+        # trained (the mel and MFCC frontends hold none)
+        with record_function("asv.frontend"), autocast(self.cast):
             feats = model.features(wav, generator)
         with record_function("asv.forward"), autocast(self.cast):
             x = model.embed(feats)

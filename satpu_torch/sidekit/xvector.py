@@ -1,6 +1,6 @@
 """X-vector speaker-embedding models (port of ``satpu.sidekit.xvector``).
 
-- ``EcapaXVector``: mel frontend -> PreEcapaTDNN -> AttentiveStatsPool ->
+- ``EcapaXVector``: frontend -> PreEcapaTDNN -> AttentiveStatsPool ->
   192-d embedding -> ArcMargin(s=30, m=0.2) (tuning/ecapa_tdnn.py:22-88).
 - ``ResNetXVector``: PreHalfResNet34 -> AttentivePooling(global context) ->
   256-d embedding -> ArcMargin (tuning/resnet.py:34-76).
@@ -14,6 +14,13 @@ call (fine-tuning raises it to 0.4). Run the forward under
 ``sidekit.nn.autocast(torch.bfloat16)`` for satpu's bf16 policy: every conv
 and linear layer in bf16 (the pooling's and the embedding's too), batch
 norm, the pooling statistics and the ArcMargin head in f32.
+
+The frontend is log-mel (``melspec``), MFCC (``mfcc``) or WavLM
+(``wavlm``: ``models.wavlm.WavLmFrontEnd``, the module ``preprocessor``,
+trained with the rest; no SpecAugment), and the trunk's input width is
+the frontend's: ``n_mels``, or WavLM's hidden size. ``wavlm`` is None
+(WavLM-large), a ``WavLMConfig`` or its dict (a checkpoint's build
+params).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from ..models.wavlm import WavLMConfig, WavLmFrontEnd
 from .archi import PreEcapaTDNN, PreHalfResNet34
 from .loss import ArcMarginProduct, normalize
 from .nn import BatchNorm, Linear
@@ -41,25 +49,39 @@ class XVectorConfig:
     arc_s: float = 30.0
     arc_m: float = 0.2
     spec_augment: bool = True
-    # "melspec" | "mfcc" ("wavlm" is not ported)
+    # "melspec" | "mfcc" | "wavlm" (sidekit/preprocessor.py frontends)
     frontend: str = "melspec"
-    wavlm: object = None
+    wavlm: object = None  # WavLMConfig (or its dict) when frontend == "wavlm"
+
+
+def wavlm_config(wavlm) -> WavLMConfig:
+    """``XVectorConfig.wavlm`` as a ``WavLMConfig``: None is WavLM-large."""
+    if wavlm is None:
+        return WavLMConfig.large()
+    return wavlm if isinstance(wavlm, WavLMConfig) else WavLMConfig.from_dict(wavlm)
 
 
 class _XVector(nn.Module):
     def __init__(self, cfg: XVectorConfig):
         super().__init__()
-        if cfg.frontend == "wavlm":
-            raise NotImplementedError(
-                "the WavLM frontend is not ported to satpu_torch yet: it needs "
-                "models/wavlm.py and models/wav2vec2.py (ROADMAP item 12)")
-        if cfg.frontend not in ("melspec", "mfcc"):
+        if cfg.frontend not in ("melspec", "mfcc", "wavlm"):
             raise ValueError(f"unknown frontend {cfg.frontend!r}")
         self.cfg = cfg
+        if cfg.frontend == "wavlm":
+            self.preprocessor = WavLmFrontEnd(wavlm_config(cfg.wavlm))
+
+    @property
+    def in_feat(self) -> int:
+        """The trunk's input width: the frontend's feature count."""
+        if self.cfg.frontend == "wavlm":
+            return wavlm_config(self.cfg.wavlm).hidden_size
+        return self.cfg.n_mels
 
     def features(self, wav: torch.Tensor, generator=None) -> torch.Tensor:
-        """[B, T] audio -> [B, n_mels, frames], masked in training mode with
-        ``spec_augment``."""
+        """[B, T] audio -> [B, features, frames], masked in training mode with
+        ``spec_augment`` (never the WavLM frontend's)."""
+        if self.cfg.frontend == "wavlm":
+            return self.preprocessor(wav)
         if self.cfg.frontend == "mfcc":
             x = mfcc_frontend(wav, n_mfcc=self.cfg.n_mels)
         else:
@@ -89,7 +111,7 @@ class EcapaXVector(_XVector):
     def __init__(self, cfg: XVectorConfig):
         super().__init__(cfg)
         c = cfg.channels
-        self.sequence_network = PreEcapaTDNN(cfg.n_mels, c)
+        self.sequence_network = PreEcapaTDNN(self.in_feat, c)
         self.stat_pooling = AttentiveStatsPool(c * 3, 128)
         self.before_speaker_embedding_lin = Linear(c * 3 * 2, cfg.embedding_size, bias=False)
         self.before_speaker_embedding_bn2 = BatchNorm(cfg.embedding_size)
@@ -104,7 +126,7 @@ class EcapaXVector(_XVector):
 class ResNetXVector(_XVector):
     def __init__(self, cfg: XVectorConfig):
         super().__init__(cfg)
-        freqs = cfg.n_mels // 8
+        freqs = self.in_feat // 8
         self.sequence_network = PreHalfResNet34()
         self.stat_pooling = AttentivePooling(256, freqs, global_context=True)
         self.before_speaker_embedding_lin_be = Linear(256 * freqs * 2, cfg.embedding_size,

@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "satpu")
 COPIED = ("utils/kaldi_data.py", "utils/config.py", "utils/wer.py", "utils/scp_io.py",
           "utils/feature_cache.py", "utils/schedules.py", "chain/fst.py", "chain/lattice.py",
           "chain/decoder.py", "chain/hmm.py", "chain/prep.py", "bin/prepare_data.py",
-          "sidekit/scoring.py", "sidekit/dataset.py", "hifigan/dataset.py")
+          "sidekit/scoring.py", "sidekit/dataset.py", "hifigan/dataset.py", "utils/jobs.py")
 
 
 def _port_files():
@@ -61,7 +61,9 @@ def test_cli_import_leaves_jax_unloaded():
             "satpu_torch.sidekit.dataset, satpu_torch.sidekit.trainer, satpu_torch.ops.augment, "
             "satpu_torch.utils.schedules, satpu_torch.bin.prepare_data, satpu_torch.chain.hmm, "
             "satpu_torch.models.wav2vec2, satpu_torch.models.spkadv, "
-            "satpu_torch.models.torchlayers\n"
+            "satpu_torch.models.torchlayers, satpu_torch.models.wavlm, satpu_torch.hub, "
+            "satpu_torch.bin.import_model, satpu_torch.utils.flax_msgpack, "
+            "satpu_torch.utils.jobs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -126,3 +128,17 @@ def test_train_asr_variants_default_to_cuda(monkeypatch, tmp_path):
             train_asr.main(["--model", model, "--dp-epsilon", "1.0",
                             "--dirname", str(tmp_path / "exp")])
     assert not (tmp_path / "exp").exists()
+
+
+def test_import_model_and_hub_default_to_cuda(monkeypatch, tmp_path):
+    from satpu_torch import hub
+    from satpu_torch.bin import import_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("SATPU_ZOO", str(tmp_path / "zoo"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        import_model.main(["--torch-checkpoint", str(tmp_path / "final.pt"),
+                           "--tag", "bn_tdnnf_600h_vq_48_v1"])
+    assert not (tmp_path / "zoo").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hub.load(os.path.join(ROOT, "no-such.pt"))

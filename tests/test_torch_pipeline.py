@@ -82,12 +82,10 @@ def test_cli_defaults_to_cuda(setup, monkeypatch, capsys):
     assert main(["--directory", data]) == 2  # no checkpoint
 
 
-@pytest.mark.parametrize("flag", [("--num-procs", "2", "item 8"),
-                                  ("--serve-mesh", "true", "item 15")],
-                         ids=["num_procs", "serve_mesh"])
+@pytest.mark.parametrize("flag", [("--serve-mesh", "true", "item 15")], ids=["serve_mesh"])
 def test_unported_serving_flags_raise(setup, flag):
-    """satpu fans out processes / shards over cards on these flags; the port
-    refuses them instead of running one process over the whole dir."""
+    """satpu shards batches over cards on this flag; the port refuses it
+    instead of running on one card."""
     from satpu_torch.bin.anonymize import AnonymizeOpts, main
 
     _, ckpt, data, _ = setup

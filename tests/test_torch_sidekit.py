@@ -180,10 +180,3 @@ def test_xvector_from_wav_matches_satpu(arch, frontend):
     cos = (out * ref).sum(1) / np.linalg.norm(out, axis=1) / np.linalg.norm(ref, axis=1)
     assert cos.min() >= 0.9999, cos
     assert rel_err(logits.numpy(), ref_logits) <= 1e-3
-
-
-def test_wavlm_frontend_is_refused():
-    from satpu_torch.sidekit.xvector import XVectorConfig, build_xvector
-
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        build_xvector(XVectorConfig(frontend="wavlm", **XV_TINY))
