@@ -117,7 +117,28 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     held against the original checkpoint's), then ``anonymize --num-procs
     2`` with the zoo checkpoint against one process (the same wavs, each of
     its input's length, within bf16 serving's 2e-2), and a run whose shards
-    cannot start exits non-zero.
+    cannot start exits non-zero;
+27. dp-train: data parallelism on the one card. The ``train_asr``,
+    ``train_asv`` and ``train_vc`` CLIs under ``torch.distributed.run
+    --nproc-per-node 1`` (NCCL) with the arguments of phases 8, 16 and 13,
+    their logged losses against those runs'; each trainer's step (TDNN-F
+    B=16, ECAPA-512 B=128 over 5994 speakers, the GAN at B=32) from seed 0
+    without and with a one-rank NCCL group: ms per step, the sync ranges'
+    split, the first losses; then two gloo ranks on cuda:0 (CUDA tensors),
+    each on half of every global batch, against one rank on the global
+    batches for 2 steps of each trainer (the networks in f64, the GAN at
+    B=8): losses rel 1e-5, the states rel 1e-4 in relative L2, rank 1
+    equal to rank 0, K2f/K2b launched in every chain step (a correctness
+    check: gloo stages through the host);
+28. serve-mesh: ``anonymize --serve-mesh true`` on the card bitwise the run
+    without the flag (one device runs unsharded), and ``process_data`` over
+    [cuda:0, cuda:0] (each batch in two blocks) within 1e-6 of the
+    unsharded run, K1 launched once per block;
+29. export: ``hub.export_convert`` of the flagship (bf16 serving) at B=8 x
+    10 s, loaded with ``torch.export.load`` in a fresh process that imports
+    only the SHC op's registration and run there: export and load times,
+    K1's launches inside the program, its departure from eager, and
+    audio-seconds per second exported and eager.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -195,6 +216,10 @@ WAVLM_TINY = {"frontend": "wavlm", "num_speakers": 10, "channels": 32, "embeddin
                         "num_buckets": 32, "max_bucket_distance": 50,
                         "feat_extract_norm": "layer", "conv_bias": True}}
 DIST_TAG = "hifigan_bn_tdnnf_600h_vq_48_v1"
+# scale-out: the steps of the data-parallel check, the exported program's shapes
+DP_STEPS = 2
+DP_GAN_BATCH = 8  # the f64 GAN of the two-rank check (4 a rank)
+EXPORT_BATCH, EXPORT_SECONDS = 8, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -991,7 +1016,7 @@ def phase_train_throughput(np, torch, fx, card):
     den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
     g = den.tensors("cuda")
     lk = den_fb.leak_log(1e-5)
-    for B, iters in ((16, 8), (64, 4)):  # multiples of 4: NG update steps in proportion
+    for B, iters in ((16, 4), (64, 4)):  # multiples of 4: NG update steps in proportion
         model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
         trainer = ChainTrainer(model, den, lr_schedule=lambda step: 1e-3)
         batch = chain_batch(torch, fx, B, "cuda")
@@ -1574,7 +1599,7 @@ def phase_gan_throughput(np, torch, card):
     from satpu_torch import infer_helper
     from satpu_torch.hifigan.trainer import PHASES, GanHparams, GanTrainer
 
-    for dtype, B, iters in (("float32", 32, 4), ("bfloat16", 128, 3)):
+    for dtype, B, iters in (("float32", 32, 3), ("bfloat16", 128, 2)):
         model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
                                          compute_dtype=dtype, **FLAGSHIP)
         trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT, compute_dtype=dtype))
@@ -1773,7 +1798,7 @@ def phase_asv_throughput(np, torch, card):
     from satpu_torch.sidekit.trainer import PHASES, AsvTrainer, make_asv_optimizer
 
     rng = np.random.default_rng(7)
-    for dtype, B, iters in (("float32", 1024, 3), ("bfloat16", 1024, 3), ("float32", 128, 8)):
+    for dtype, B, iters in (("float32", 1024, 3), ("bfloat16", 1024, 3), ("float32", 128, 4)):
         model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
                                          num_speakers=ASV_HEAD)
         trainer = AsvTrainer(model, make_asv_optimizer(model), compute_dtype=dtype)
@@ -2607,9 +2632,523 @@ def phase_distribution(np, torch, card, ckpt):
     check(rc_fail != 0, "a run whose shards fail exited 0")
 
 
+# ---- scale-out: data-parallel training, the serving mesh, export ---------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_child(cmd, timeout: float, what: str, env=None) -> str:
+    """Run a child process to its end (killed at ``timeout``); fails the phase
+    unless it exits 0. Returns its standard output."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise SystemExit(f"chip_smoke FAILED: {what} ran past {timeout} s")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def child_env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+
+
+def dp_inputs(np, torch, fx):
+    """The dp-train phase's global batches, on the host: B=16 x 3 s egs of
+    the chain fixture (with a codebook warmed on them: 48 frames of the
+    batch's bottleneck, EMA cluster size 50, as the CPU tests warm it; a
+    random codebook collapses at its first update and leaves the gradients
+    upstream of it rounding noise), B=128 x 3 s for the ECAPA over 5994
+    speakers, B=32 segments for the GAN."""
+    from satpu_torch import infer_helper
+
+    wav, graphs, frames = chain_batch(torch, fx, 16, "cpu")
+    model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+    vq = model.tdnnfs[-1].tdnn.bottleneck_func.vq
+    name = next(n for n, m in model.named_modules() if m is vq)
+    seen = []
+    hook = vq.register_forward_pre_hook(lambda m, i: seen.append(i[0].detach()))
+    with torch.no_grad():
+        model.train()(wav.cuda())
+    hook.remove()
+    feats = seen[0].transpose(1, 2).reshape(-1, seen[0].shape[1]).cpu()
+    emb = feats[torch.linspace(0, len(feats) - 1, 48).long()].contiguous()
+    warm = {f"{name}.embedding": emb, f"{name}.ema_cluster_size": torch.full((48,), 50.0),
+            f"{name}.ema_w": emb * 50.0}
+    del model
+    rng = np.random.default_rng(11)
+    asv = [(torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, ASV_HEAD, 128))) for _ in range(DP_STEPS)]
+    return {"chain": {"batch": (wav, graphs, frames), "warm": warm, "den_fst": fx["den_fst"]},
+            "asv": asv, "gan": gan_batch(np, torch, DP_GAN_BATCH, "cpu")}
+
+
+def dp_run(torch, inp, rank: int, world: int):
+    """DP_STEPS steps of each trainer at full width on cuda:0 on this rank's
+    block of each global batch (all of it for one rank): the chain trainer
+    (TDNN-F 1024 + VQ-48, NG on, 1641-state den graph; the network in f64,
+    the objective in f32 as always), the ECAPA-512 judge's and the GAN's
+    (at B=DP_GAN_BATCH) in f64. In f32 the steps are ill-conditioned: the
+    train-mode batch norms amplify rounding to 1e-4 of a gradient, the
+    random generator's near-silent output puts the mel loss's log on tiny
+    bins (the generator's gradients then part by 2.7e-2 of a tensor's
+    largest between a batch of 32 and two of 16, whose cuDNN algorithms
+    differ), and Adam's first update is the gradient's sign; the CPU tests
+    run f64 for the same reason. An f64 GAN at B=32 would not fit beside
+    its ranks. Returns per trainer the losses, the final state (rank 0;
+    other ranks its per-tensor sums) and the kernels' launches."""
+    from satpu_torch import infer_helper
+    from satpu_torch.chain import den_fb
+    from satpu_torch.chain.fst import Fst
+    from satpu_torch.chain.objf import DenominatorGraph
+    from satpu_torch.chain.trainer import ChainTrainer
+    from satpu_torch.hifigan.trainer import GanHparams, GanTrainer
+    from satpu_torch.parallel.mesh import local_batch_slice
+    from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
+
+    def rows(x):
+        return x[local_batch_slice(x.shape[0], rank, world)].cuda()
+
+    def keep(state):
+        state = {k: v.detach().cpu() for k, v in state.items()}
+        if rank == 0:
+            return state
+        return {k: float(v.double().sum()) for k, v in state.items()}
+
+    out = {}
+    model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+    model.load_state_dict({**model.state_dict(),
+                           **{k: v.cuda() for k, v in inp["chain"]["warm"].items()}})
+    model.double()
+    trainer = ChainTrainer(model, DenominatorGraph.from_fst(Fst.read(inp["chain"]["den_fst"]),
+                                                            NUM_PDFS),
+                           lr_schedule=lambda step: 1e-3)
+    wav, graphs, frames = inp["chain"]["batch"]
+    den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+    loss = [float(trainer.step(rows(wav).double(), {k: rows(v) for k, v in graphs.items()},
+                               rows(frames))["loss"]) for _ in range(DP_STEPS)]
+    out["chain"] = {"loss": loss, "state": keep(model.state_dict()),
+                    "launches": {"den_fb_forward": den_fb.den_fb_forward.launches,
+                                 "den_fb_backward": den_fb.den_fb_backward.launches}}
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                     num_speakers=ASV_HEAD).double()
+    trainer = AsvTrainer(model, make_asv_optimizer(model))
+    gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
+    loss = [float(trainer.train_step(rows(w).double(), rows(t), gen)["loss"])
+            for w, t in inp["asv"]]
+    out["asv"] = {"loss": loss, "state": keep(model.state_dict())}
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
+                                     **FLAGSHIP).double()
+    trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
+    trainer.mpd.double(), trainer.msd.double()
+    batch = {k: rows(v).double() for k, v in inp["gan"].items()}
+    loss = []
+    for _ in range(DP_STEPS):
+        m = trainer.train_step(batch)
+        loss += [float(m["loss_gen_all"]), float(m["loss_disc_all"])]
+    state = {k: v for k, v in model.state_dict().items() if k.startswith("hifigan.")}
+    out["gan"] = {"loss": loss, "state": keep({**state, **trainer.discriminator_state_dict()})}
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(rank: int, world: int, port: int, inputs: str, result: str) -> int:
+    """One gloo rank of the dp-train phase on cuda:0 (``--dp-worker``)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        torch.save(dp_run(torch, torch.load(inputs, weights_only=False), rank, world), result)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def rel_l2(torch, got, want) -> float:
+    num = sum(float(((got[k].double() - v.double()) ** 2).sum()) for k, v in want.items()
+              if v.is_floating_point())
+    den = sum(float((v.double() ** 2).sum()) for v in want.values() if v.is_floating_point())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def phase_dp_train(np, torch, card, fx):
+    """Data-parallel training on the card (one H100: NCCL refuses two ranks on
+    one device). (a) the three training CLIs under ``torch.distributed.run
+    --nproc-per-node 1`` over NCCL with the earlier phases' arguments: their
+    logged losses against those no-group runs'; each trainer's step in this
+    process without and with a one-rank NCCL group (ms per step, and the
+    group's ``*.sync`` / ``*_sync`` ranges in a profile). (b) two gloo ranks
+    on cuda:0 with CUDA tensors, each on half of every global batch, against
+    one rank on the global batches (TF32 off, DP_STEPS steps; the chain and
+    ECAPA and GAN networks in f64, the GAN at B=DP_GAN_BATCH, ``dp_run``):
+    losses rel 1e-5, parameters and batch-norm / VQ buffers rel 1e-4 in
+    relative L2 over the trainer's tensors, rank 1 equal to rank 0,
+    K2f/K2b launched every chain step. gloo stages CUDA tensors through the host:
+    (b) checks correctness, not speed. Returns the ranks' den kernel
+    launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.chain.fst import Fst
+    from satpu_torch.chain.objf import DenominatorGraph
+    from satpu_torch.chain.trainer import PHASES as CHAIN_PHASES
+    from satpu_torch.chain.trainer import ChainTrainer
+    from satpu_torch.hifigan.trainer import PHASES as GAN_PHASES
+    from satpu_torch.hifigan.trainer import GanHparams, GanTrainer
+    from satpu_torch.sidekit.trainer import PHASES as ASV_PHASES
+    from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
+
+    torch.cuda.empty_cache()
+    # (a) the CLIs, one rank over NCCL, against the earlier phases' no-group runs
+    chain, asv, gan = (os.path.join(WORK, d) for d in ("chain", "asv", "gan"))
+    clis = {
+        "train_asr": (["--train-set", fx["data"], "--fst-scp", fx["fst_scp"], "--valid-set",
+                       fx["valid"], "--valid-fst-scp", fx["valid_fst_scp"], "--den-fst",
+                       fx["den_fst"], "--num-pdfs", str(NUM_PDFS), "--model", "tdnnf_vq",
+                       "--codebook-size", "48", "--minibatch-size", "16", "--num-epochs", "2",
+                       "--diagnostics-interval", "1"], chain, ("loss", "chain_objf")),
+        "train_asv": (["--config", os.path.join(ROOT, ASV_CONFIG), "--train-set",
+                       os.path.join(asv, "data"), "--samples-per-speaker", "2", "--epochs",
+                       "2"], asv, ("loss",)),
+        "train_vc": (["--config", os.path.join(ROOT, GAN_CONFIG), "--train-set",
+                      os.path.join(gan, "train"), "--dev-set", os.path.join(gan, "dev"),
+                      "--asrbn-checkpoint", os.path.join(gan, "asrbn.pt"),
+                      "--training-epochs", "1"], gan, ("val_mel_error",)),
+    }
+    def torchrun(name):
+        args, root, _ = clis[name]
+        t0 = time.perf_counter()
+        run_child([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+                   "--master-addr", "localhost", "--master-port", str(free_port()), "-m",
+                   f"satpu_torch.bin.{name}", *args, "--dirname", os.path.join(root, "exp_dp")],
+                  600, f"torchrun {name}", child_env())
+        return time.perf_counter() - t0
+
+    # the three side by side (peaks of ~2, 29 and 37 GiB)
+    with ThreadPoolExecutor(3) as pool:
+        walls = dict(zip(clis, pool.map(torchrun, clis)))
+    for name, (args, root, keys) in clis.items():
+        wall = walls[name]
+        logged = []
+        for d in ("exp", "exp_dp"):
+            with open(os.path.join(root, d, "metrics.jsonl")) as f:
+                logged.append([json.loads(x) for x in f])
+        ref, got = logged
+        check([r["step"] for r in got] == [r["step"] for r in ref] and ref,
+              f"{name}: the one-rank run logged other steps")
+        worst = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-30)
+                    for g, r in zip(got, ref) for k in keys if k in r)
+        check(all(np.isfinite(g[k]) for g in got for k in keys if k in g),
+              f"{name}: the one-rank run logged a value that is not finite")
+        print(f"[dp-train] torchrun --nproc-per-node 1 (NCCL) {name}: {len(got)} logged"
+              f" {'/'.join(keys)} values within rel {worst:.3e} of the no-group run's"
+              f" ({wall:.1f} s with the process start; the three CLIs side by side)")
+        # the GAN's 8 steps from a random init spread with cuDNN's
+        # nondeterministic conv backward (Adam turns entries under rounding
+        # into full updates): its steps are held one by one below
+        check(worst <= 1e-3 or name == "train_vc",
+              f"{name}: the one-rank NCCL run departs by {worst:.3e}")
+
+    # (a) each trainer's step in this process, without and with a one-rank NCCL group
+    fx_den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
+    rng = np.random.default_rng(3)
+    asv_batch = (torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(
+        np.float32)).cuda(), torch.from_numpy(rng.integers(0, ASV_HEAD, 128)).cuda())
+
+    def chain_setup():
+        model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+        trainer = ChainTrainer(model, fx_den, lr_schedule=lambda step: 1e-3)
+        batch = chain_batch(torch, fx, 16, "cuda")
+        return lambda: trainer.step(*batch)
+
+    def asv_setup():
+        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                         num_speakers=ASV_HEAD)
+        trainer = AsvTrainer(model, make_asv_optimizer(model))
+        gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
+        return lambda: trainer.train_step(*asv_batch, gen)
+
+    def gan_setup():
+        model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
+                                         **FLAGSHIP)
+        trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
+        batch = gan_batch(np, torch, 32, "cuda")
+        return lambda: trainer.train_step(batch)
+
+    def timed(step, iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def first_losses(step, n=DP_STEPS):
+        out = []
+        for _ in range(n):
+            m = step()
+            out.append(float(m["loss_gen_all"] if "loss_gen_all" in m else m["loss"]))
+        return out
+
+    for name, setup, prefix, phases, sync, iters in (
+            ("train_asr tdnnf_vq B=16 x 3 s", chain_setup, "chain.", CHAIN_PHASES, ("sync",), 3),
+            ("train_asv ECAPA-512 B=128 x 3 s", asv_setup, "asv.", ASV_PHASES, ("sync",), 3),
+            ("train_vc hifigan B=32", gan_setup, "gan.", GAN_PHASES, ("d_sync", "g_sync"), 2)):
+        # the same first steps from the same seed without and with a group
+        step = setup()
+        plain_loss = first_losses(step)
+        plain = timed(step, iters)
+        del step
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            step = setup()
+            group_loss = first_losses(step)
+            grouped = timed(step, iters)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            host, dev = train_split(prof, 1, prefix=prefix, phases=phases)
+        finally:
+            dist.destroy_process_group()
+        del step
+        torch.cuda.empty_cache()
+        errs = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(group_loss, plain_loss)]
+        print(f"[dp-train] {name}, f32, from seed 0: {plain:.1f} ms/step without a process"
+              f" group, {grouped:.1f} ms/step in a one-rank NCCL group; its sync split host /"
+              f" device ms/step: "
+              + ", ".join(f"{prefix}{s} {host[s]:.2f} / {dev[s]:.2f}" for s in sync)
+              + f"; losses of steps 1-{len(errs)} rel "
+              + ", ".join(f"{e:.3e}" for e in errs) + f" from the no-group run's [{card}]")
+        check(errs[0] <= 1e-5, f"{name}: the one-rank group's first loss departs by {errs[0]:.3e}")
+
+    # (b) two gloo ranks on cuda:0 against one rank on the global batches
+    inp = dp_inputs(np, torch, fx)
+    path = os.path.join(WORK, "dp_inputs.pt")
+    torch.save(inp, path)
+    torch.cuda.empty_cache()
+    port = free_port()
+    results = [os.path.join(WORK, f"dp_rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+                               "2", str(port), path, results[r]], cwd=ROOT, env=child_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"dp rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    ranks = [torch.load(r, weights_only=False) for r in results]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        ref = dp_run(torch, inp, 0, 1)
+    finally:
+        dist.destroy_process_group()
+    print(f"[dp-train] the one-rank reference took {time.perf_counter() - t0 - wall:.1f} s")
+    launches = {"den_fb_forward": 0, "den_fb_backward": 0}
+    failed = []
+    for name in ("chain", "asv", "gan"):
+        got, want = ranks[0][name], ref[name]
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["loss"], want["loss"]))
+        state_err = rel_l2(torch, got["state"], want["state"])
+        worst = max(((got["state"][k].double() - v.double()).norm()
+                     / max(float(v.double().norm()), 1e-30), k)
+                    for k, v in want["state"].items() if v.is_floating_point())
+        same = all(ranks[1][name]["state"][k] == float(v.double().sum())
+                   for k, v in got["state"].items())
+        line = (f"[dp-train] 2 gloo ranks on cuda:0 vs 1 rank, {name}: losses rel {loss_err:.3e},"
+                f" state rel L2 {state_err:.3e} (worst tensor {float(worst[0]):.3e} {worst[1]})")
+        ok = same and loss_err <= 1e-5 and state_err <= 1e-4
+        print(line + f", rank 1 = rank 0: {same}")
+        if not ok:
+            failed.append(line)
+    check(not failed, "dp: " + "; ".join(failed))
+    for r in range(2):
+        n = ranks[r]["chain"]["launches"]
+        check(all(v >= DP_STEPS for v in n.values()), f"rank {r} den launches {n}")
+        for k, v in n.items():
+            launches[k] += v
+    print(f"[dp-train] the two ranks took {wall:.1f} s (process start, full-width builds and"
+          f" {DP_STEPS} steps of each trainer over gloo); den kernel launches in the ranks'"
+          f" chain steps {launches}")
+    return launches
+
+
+def phase_serve_mesh(np, torch, ckpt):
+    """``anonymize --serve-mesh true`` on one card over the slice phase's dir:
+    the wavs bitwise those of the run without the flag (one device: it runs
+    unsharded). Then ``process_data(devices=[cuda:0, cuda:0])`` with the
+    flagship in f32, each batch split into two blocks on the card:
+    every waveform within 1e-6 of the unsharded run's, K1 launched once per
+    block. Returns K1's launches."""
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import anonymize, pipeline
+    from satpu_torch.ops import yaapt as Y
+    from satpu_torch.utils import kaldi_data
+
+    data = os.path.join(WORK, "data")
+    Y.shc_band.launches = 0
+    rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
+                         "--target-selection-algorithm", "random_per_utt", "--serve-mesh",
+                         "true", "--new-datadir-suffix", "_mesh", "--results-dir",
+                         os.path.join(WORK, "out_mesh")])
+    check(rc == 0, f"anonymize --serve-mesh exited {rc}")
+    total = Y.shc_band.launches
+    a = kaldi_data.read_wav_scp(os.path.join(data + "_anon", "wav.scp"))
+    b = kaldi_data.read_wav_scp(os.path.join(data + "_mesh", "wav.scp"))
+    check(sorted(a) == sorted(b), "serve-mesh wrote other utterances")
+    same = all(np.array_equal(kaldi_data.load_wav_from_scp(a[u])[0],
+                              kaldi_data.load_wav_from_scp(b[u])[0]) for u in a)
+    print(f"[serve-mesh] anonymize --serve-mesh true on one card: {len(b)} wavs bitwise those"
+          f" of the run without the flag: {same}")
+    check(same, "serve-mesh on one card changed the wavs")
+
+    model, meta = infer_helper.load_model(ckpt, device="cuda")
+    write = pipeline.kaldi_data.write_wav
+    outs, launches = {}, {}
+    for name, devices in (("one", None), ("two", [torch.device("cuda", 0)] * 2)):
+        captured = outs[name] = {}
+
+        def capture(path, x, rate, captured=captured):
+            captured[os.path.basename(path)] = np.array(x)
+            write(path, x, rate)
+
+        pipeline.kaldi_data.write_wav = capture
+        Y.shc_band.launches = 0
+        try:
+            pipeline.process_data(model, meta["speakers"], data, os.path.join(WORK, f"mesh_{name}"),
+                                  target_selection_algorithm="random_per_utt", batch_size=8,
+                                  new_datadir_suffix=f"_{name}", devices=devices)
+            torch.cuda.synchronize()
+        finally:
+            pipeline.kaldi_data.write_wav = write
+        launches[name] = Y.shc_band.launches
+    total += sum(launches.values())
+    worst = max(float(np.abs(outs["two"][u] - outs["one"][u]).max()) for u in outs["one"])
+    print(f"[serve-mesh] process_data over [cuda:0, cuda:0] (the flagship in f32, a batch of 8"
+          f" in two blocks): {len(outs['two'])} wavs within {worst:.3e} of the unsharded run's;"
+          f" K1 launches {launches['two']} split, {launches['one']} unsharded")
+    check(sorted(outs["two"]) == sorted(outs["one"]) and worst <= 1e-6,
+          f"two replicas depart by {worst:.3e}")
+    check(launches["two"] == 2 * launches["one"] > 0, f"K1 launches {launches}")
+    return total
+
+
+EXPORT_RUN = """
+import json, sys, time
+import torch
+import satpu_torch.ops.yaapt as Y
+modules = sorted(m for m in sys.modules if m.startswith("satpu"))
+t0 = time.perf_counter()
+prog = torch.export.load(sys.argv[1]).module()
+load_s = time.perf_counter() - t0
+io = torch.load(sys.argv[2])
+wav, tid = io["wav"].cuda(), io["tid"].cuda()
+Y.shc_band.launches = 0
+with torch.no_grad():
+    out = prog(wav, tid)
+    torch.cuda.synchronize()
+    launches = Y.shc_band.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        prog(wav, tid)
+    end.record()
+    end.synchronize()
+ref = io["eager"].cuda().float()
+print(json.dumps({"load_s": load_s, "launches": launches, "ms": start.elapsed_time(end) / 3,
+                  "max_abs": float((out.float() - ref).abs().max()),
+                  "rel": float((out.float() - ref).abs().max() / ref.abs().max()),
+                  "modules": modules}))
+"""
+
+
+def phase_export(np, torch, card, ckpt):
+    """``hub.export_convert`` of the flagship anonymizer (bf16 serving
+    policy) at B=EXPORT_BATCH x EXPORT_SECONDS: export wall time, then the
+    .pt2 loaded with ``torch.export.load`` in a fresh process that imports
+    only the SHC op's registration and run on the same input: load time,
+    K1's launches inside the program, its departure from eager (held to the
+    bf16 serving rule, rel 2e-2), and audio-seconds per second exported and
+    eager. Returns K1's launches in the exported program."""
+    from satpu_torch import hub, infer_helper
+
+    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args(),
+                                       device="cuda")
+    model.eval()
+    B, T = EXPORT_BATCH, EXPORT_SECONDS * SR
+    path = os.path.join(WORK, "convert.pt2")
+    t0 = time.perf_counter()
+    hub.export_convert(model, path, batch=B, num_samples=T)
+    export_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    wav = torch.randn((B, T), generator=gen, device="cuda") * 0.05
+    tid = torch.arange(B, device="cuda") % len(SPEAKERS)
+    with torch.no_grad():
+        eager = model.convert(wav, model.get_f0(wav), tid)
+        eager_ms = cuda_ms(torch, lambda: model.convert(wav, model.get_f0(wav), tid), iters=3,
+                           warmup=0)
+    io = os.path.join(WORK, "export_io.pt")
+    torch.save({"wav": wav.cpu(), "tid": tid.cpu(), "eager": eager.cpu()}, io)
+    del model
+    torch.cuda.empty_cache()
+    res = json.loads(run_child([sys.executable, "-c", EXPORT_RUN, path, io], 900,
+                               "the exported program's process", child_env()).strip()
+                     .split("\n")[-1])
+    audio = B * EXPORT_SECONDS
+    print(f"[export] flagship convert (bf16 serving) at B={B} x {EXPORT_SECONDS} s: exported in"
+          f" {export_s:.1f} s ({os.path.getsize(path) / 2**20:.1f} MiB); a fresh process"
+          f" importing {res['modules']} loaded it in {res['load_s']:.1f} s; K1 launches inside"
+          f" the program {res['launches']}; departure from eager {res['max_abs']:.3e} abs,"
+          f" rel {res['rel']:.3e}; {audio / res['ms'] * 1e3:.1f} audio-s/s exported,"
+          f" {audio / eager_ms * 1e3:.1f} eager [{card}]")
+    check(res["modules"] == ["satpu_torch", "satpu_torch.ops", "satpu_torch.ops.yaapt"],
+          f"the exported program's process imported {res['modules']}")
+    check(res["launches"] >= 1, "the exported program did not launch K1")
+    check(res["rel"] <= 2e-2, f"exported convert departs from eager by rel {res['rel']:.3e}")
+    return res["launches"]
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of the dp-train phase
+        return dp_worker(*(int(a) for a in sys.argv[2:5]), *sys.argv[5:7])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -2695,6 +3234,18 @@ def main() -> int:
     # model distribution: reference final.pt -> import_model -> hub -> anonymize --num-procs
     phase_distribution(np, torch, card, ckpt)
     lap("distribution")
+    # scale-out: data-parallel training (K2f, K2b in the ranks' chain steps),
+    # the serving mesh and the exported anonymizer (K1)
+    for name, n in phase_dp_train(np, torch, card, fx).items():
+        launches[name] += n
+    lap("dp-train")
+    mesh_launches = phase_serve_mesh(np, torch, ckpt)
+    lap("serve-mesh")
+    export_launches = phase_export(np, torch, card, ckpt)
+    lap("export")
+    print(f"[kernels] shc_band launches of the scale-out paths: serve-mesh {mesh_launches},"
+          f" the exported program {export_launches} (in the kernels line)")
+    launches["shc_band"] += mesh_launches + export_launches
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

@@ -32,12 +32,18 @@ one against it on the same weights and inputs.
                          checkpoints (and a reader of satpu's), metrics log,
                          learning-rate schedules, the CUDA build helper, WER,
                          the kaldi ark writer and fail-fast job fan-out.
+- ``satpu_torch.parallel`` data parallelism over torch.distributed with
+                         satpu's global-batch semantics, and the process
+                         group's set-up from torchrun's or satpu's variables.
 - ``satpu_torch.hub``    the model zoo: tags (with option args) to
-                         checkpoints under ``$SATPU_ZOO``.
+                         checkpoints under ``$SATPU_ZOO``; ``torch.export``
+                         of the anonymizer and the extractors.
 - ``satpu_torch.bin``    the ``anonymize`` CLI and its pipeline, the
                          ``train_asr``, ``train_vc``, ``train_asv``,
-                         ``eval_anon``, ``prepare_data`` and ``import_model``
-                         CLIs.
+                         ``eval_anon``, ``prepare_data``, ``import_model``,
+                         ``export_model``, ``diff_checkpoints``, ``parity``,
+                         ``preprocess_audio``, ``prepare_vctk`` and
+                         ``prepare_aug`` CLIs.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; they raise
 when CUDA is absent rather than falling back. Evaluation on the card:

@@ -6,7 +6,10 @@ when CUDA is absent unless ``--device cpu`` is given). ``--num-procs N``
 runs the dir as N shard processes (``--num-shards N --shard k``, the same
 other arguments, so all on ``--device``), as the reference forks a process
 per job (bin/anonymize:82-93); when one fails the others are terminated
-and the run exits non-zero.
+and the run exits non-zero. ``--serve-mesh true`` splits every batch over
+every local card, one replica of the model on each (satpu's serving mesh;
+``batch_size`` a multiple of the card count); on one card it runs
+unsharded.
 
 Usage:
   python -m satpu_torch.bin.anonymize --checkpoint model.pt --directory data/X
@@ -39,7 +42,7 @@ class AnonymizeOpts(cfg.Opts):
     num_procs: int = 1
     # serving compute dtype override
     compute_dtype: str = "bfloat16"
-    # batches sharded over all local cards (not ported: ROADMAP item 15)
+    # batches split over every local card (the serving mesh)
     serve_mesh: bool = False
     device: str = "cuda"
 
@@ -91,12 +94,14 @@ def main(argv=None):
         return 2
     if opts.num_procs > 1:
         return run_shards(argv if argv is not None else sys.argv[1:], opts.num_procs)
-    if opts.serve_mesh:
-        raise NotImplementedError("--serve-mesh (batches sharded over several cards) is not "
-                                  "ported to satpu_torch yet (ROADMAP item 15)")
-
-    from .. import infer_helper
+    from .. import infer_helper, resolve_device
+    from ..parallel.mesh import serve_devices
     from .pipeline import process_data
+
+    devices = serve_devices(resolve_device(opts.device)) if opts.serve_mesh else None
+    if devices and len(devices) > 1 and opts.batch_size % len(devices):
+        raise ValueError(f"serve_mesh needs batch_size ({opts.batch_size}) divisible by the "
+                         f"device count ({len(devices)})")
 
     model, meta = infer_helper.load_model(
         opts.checkpoint, option_args=infer_helper.serving_option_args(
@@ -116,7 +121,7 @@ def main(argv=None):
         batch_size=opts.batch_size, f0_transformation=opts.f0_transformation,
         seed=opts.seed, new_datadir_suffix=opts.new_datadir_suffix,
         num_shards=opts.num_shards, shard=opts.shard,
-        f0_speaker_stats=meta.get("f0_speaker_stats"), progress_cb=progress)
+        f0_speaker_stats=meta.get("f0_speaker_stats"), devices=devices, progress_cb=progress)
     logging.info("done: %s", out_dir)
     return 0
 

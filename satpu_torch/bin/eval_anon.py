@@ -16,6 +16,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import inspect
 import json
@@ -23,11 +24,13 @@ import logging
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import f32_matmuls, resolve_device
+from ..parallel.mesh import serve_devices
 from ..utils import config as cfg
 from ..utils import kaldi_data
 from ..utils.wer import corpus_wer
@@ -58,7 +61,7 @@ class EvalOpts(cfg.Opts):
     trials: str = ""  # "spk utt target|nontarget" lines
     cohort_dir: str = ""
     cohort_size: int = 400  # top-N cohort utterances (reference asnorm top-400)
-    # shard loglike batches over all local devices (not ported)
+    # split loglike batches over every local card (the serving mesh)
     serve_mesh: bool = False
     xvector_mode: str = "chunked"  # "full" = reference batch=1 full-utterance
                                    # extraction protocol (objf.py:228-258)
@@ -67,23 +70,28 @@ class EvalOpts(cfg.Opts):
     device: str = "cuda"
 
 
-def evaluate_asr(opts) -> dict:
+def evaluate_asr(opts, devices: Optional[Sequence] = None) -> dict:
     """WER over the data dir: bucketed batched loglikes on the device, native
     lattice decode + optional big-LM rescoring on the host (the reference's
     decode | latgen-faster-mapped | rescore | score flow,
-    egs/anon/vctk/local/eval.py:124-194)."""
+    egs/anon/vctk/local/eval.py:124-194). With several ``devices`` (the
+    serving mesh) the model is replicated on each and every batch is split
+    into contiguous blocks, one a device, gathered in order."""
     from .. import infer_helper, native
     from ..chain.decoder import best_path_decode, read_words_txt
     from ..chain.fst import Fst
     from ..chain.lattice import ArpaLM, best_path, nbest, rescore_lattice, rescore_nbest, to_ctm
     from ..models.asrbn import output_num_frames
-    from .pipeline import DEFAULT_BUCKETS, _start_host_copy, _to_device, bucket_for
+    from ..parallel import mesh
+    from .pipeline import DEFAULT_BUCKETS, _start_host_copy, bucket_for
 
     model, _ = infer_helper.load_model(opts.asr_checkpoint, device=opts.device)
     # the fbank nets mask a padded batch by its lengths; the wav2vec2 net
     # takes none (as in satpu)
     takes_len = "lengths" in inspect.signature(model.forward).parameters
     device = next(model.parameters()).device
+    devices = [torch.device(d) for d in devices] if devices else [device]
+    replicas = [model if d == device else copy.deepcopy(model).to(d) for d in devices]
     graph = Fst.read(opts.decode_graph)
     words = read_words_txt(opts.words_txt) if opts.words_txt else None
     word_table = words or {}
@@ -171,8 +179,9 @@ def evaluate_asr(opts) -> dict:
             for j, (_, w) in enumerate(batch):
                 wav_b[j, : len(w)] = w
                 lens[j] = len(w)
-            wav_t, lens_t = (_to_device(torch.from_numpy(a), device) for a in (wav_b, lens))
-            chain_out = (model(wav_t, lens_t) if takes_len else model(wav_t))[0].float()
+            wavs, lens_b = (mesh.split_rows(torch.from_numpy(a), devices) for a in (wav_b, lens))
+            chain_out = mesh.gather_rows([(m(w, n) if takes_len else m(w))[0].float()
+                                          for m, w, n in zip(replicas, wavs, lens_b)])
             # decode the PREVIOUS batch while the device computes this one
             if in_flight is not None:
                 submit(*in_flight)
@@ -255,18 +264,20 @@ def main(argv=None):
                 opts.load_from_config(kv)
     opts.load_from_args(rest)
     dev = resolve_device(opts.device)
-    if opts.serve_mesh:
-        if dev.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError("--serve-mesh (loglike batches sharded over several "
-                                      "cards) is not ported to satpu_torch yet (ROADMAP "
-                                      "item 15)")
+    devices = serve_devices(dev) if opts.serve_mesh else [dev]
+    if len(devices) > 1:
+        if opts.batch_size % len(devices):
+            raise ValueError(f"serve_mesh needs batch_size ({opts.batch_size}) divisible by "
+                             f"the device count ({len(devices)})")
+        logging.info("serve_mesh: loglike batches split over %d devices", len(devices))
+    elif opts.serve_mesh:
         logging.info("serve_mesh: one device, batches run unsharded")
     os.makedirs(opts.results, exist_ok=True)
     out = {}
     # the cosine scores are thresholded: TF32's 10-bit inputs would move EER ties
     with f32_matmuls():
         if opts.asr_checkpoint:
-            out["asr"] = evaluate_asr(opts)
+            out["asr"] = evaluate_asr(opts, devices)
         if opts.asv_checkpoint:
             out["asv"] = evaluate_asv(opts)
     with open(os.path.join(opts.results, "results.json"), "w") as f:

@@ -7,6 +7,12 @@ model's device. One batch stays in flight: its output is copied to pinned
 host memory asynchronously while the next batch is enqueued, and a writer
 thread pool writes the wavs once the copy has landed.
 
+With several ``devices`` (``anonymize --serve-mesh``, satpu's serving mesh)
+the model is replicated once per device and each batch is cut into one
+contiguous block per device; every block runs ``get_f0`` and ``convert`` on
+its device, and the outputs are gathered in order. A random F0
+transformation draws each block's noise from its device's own generator.
+
 Target-selection algorithms: constant | none | bad_for_evaluation |
 random_per_utt | random_per_spk_uniq | random_per_spk.
 """
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..utils import kaldi_data
 
 DEFAULT_BUCKETS = (16000, 32000, 48000, 64000, 96000, 128000, 160000, 240000, 320000)
@@ -77,14 +84,6 @@ def bucket_for(length: int, buckets: Sequence[int]) -> int:
     return ((length + top - 1) // top) * top
 
 
-def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host tensor -> device; through pinned memory for CUDA, since a copy
-    from pageable memory first waits for the device's queue to drain."""
-    if device.type != "cuda":
-        return x.to(device)
-    return x.pin_memory().to(device, non_blocking=True)
-
-
 def _start_host_copy(out: torch.Tensor):
     """(host tensor, event to wait on or None): an async device->host copy
     into pinned memory for a CUDA tensor."""
@@ -103,7 +102,7 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, f0_transformation: str = "",
                  seed: int = 0, new_datadir_suffix: str = "_anon",
                  num_shards: int = 1, shard: int = 0, f0_speaker_stats: Optional[dict] = None,
-                 progress_cb=None) -> str:
+                 devices: Optional[Sequence] = None, progress_cb=None) -> str:
     """Anonymize every utterance of ``data_dir``; returns the new data dir.
 
     model: AnonymizationNet on its serving device; speakers: ordered target
@@ -117,6 +116,10 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
     each utterance's F0 is normalized on the host by its source speaker's
     statistics, and a speaker without them passes through. Without the
     statistics such a model is refused (raw F0 in Hz is not its input).
+
+    ``devices`` (the model's device when None): with more than one, each
+    batch is split over them (``batch_size`` must be a multiple of their
+    count), one replica of the model on each.
     """
     f0_cmvn = None
     if model.cfg.f0_norm == "none":
@@ -129,6 +132,10 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
         f0_cmvn = SpeakerCMVN.from_meta(f0_speaker_stats)
         f0_cmvn.pass_through = True
     device = next(model.parameters()).device
+    devices = [torch.device(d) for d in devices] if devices else [device]
+    if len(devices) > 1 and batch_size % len(devices):
+        raise ValueError(f"serve_mesh needs batch_size ({batch_size}) divisible by the device "
+                         f"count ({len(devices)})")
     rng = random.Random(seed)
     out_dir = data_dir.rstrip("/") + new_datadir_suffix
     kaldi_data.copy_data_dir(data_dir, out_dir)
@@ -155,7 +162,12 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
         entries.append((utt, wav[0], rate))
     entries.sort(key=lambda e: len(e[1]))
 
-    generator = torch.Generator(device=device).manual_seed(seed)
+    # one replica (and generator) per device; the first is ``model`` when
+    # it sits on the first device
+    replicas = [model if d == device else copy.deepcopy(model).to(d) for d in devices]
+    if len(devices) > 1:
+        logging.info("serve_mesh: batches split over %d devices", len(devices))
+    generators = [torch.Generator(device=d).manual_seed(seed) for d in devices]
     new_wav_scp: Dict[str, str] = {}
 
     def write_batch(utids, host, done, lens, rate):
@@ -194,14 +206,15 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
             tids = np.zeros((batch_size,), np.int64)
             tids[:len(batch)] = tids_list
 
-            wav_t, tids_t = (_to_device(torch.from_numpy(a), device) for a in (wav_batch, tids))
-            f0 = model.get_f0(wav_t)
+            wavs, tid_blocks = (mesh.split_rows(torch.from_numpy(a), devices) for a in (wav_batch, tids))
+            f0s = [m.get_f0(w) for m, w in zip(replicas, wavs)]
             if f0_cmvn is not None:
-                f0_host = f0.cpu().numpy()
+                f0_host = torch.cat([f.cpu() for f in f0s]).numpy()
                 for j, ut in enumerate(utids):
                     f0_host[j] = f0_cmvn(f0_host[j], source_utt2spk.get(ut, ut))
-                f0 = _to_device(torch.from_numpy(f0_host), device)
-            out = model.convert(wav_t, f0, tids_t, generator=generator)
+                f0s = mesh.split_rows(torch.from_numpy(f0_host), devices)
+            out = mesh.gather_rows([m.convert(w, f, t, generator=g) for m, w, f, t, g in zip(
+                replicas, wavs, f0s, tid_blocks, generators)], devices[0])
             host, done = _start_host_copy(out[:len(batch)])
             # write the PREVIOUS batch while the device converts this one
             if in_flight is not None:

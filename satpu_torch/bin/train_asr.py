@@ -34,16 +34,25 @@ them all from a kaldi data dir.
 
 ``augmentation`` (inline lenient JSON or a .json path, with its noise and
 RIR databases; ``ops.augment.load_augmentation``) augments every eg of a
-batch on the host. Multi-device data parallelism (ROADMAP item 15) is not
-ported: one process trains on one device.
+batch on the host.
+
+Data parallelism (satpu's ``data`` mesh): under ``torchrun --nproc-per-node
+N`` each rank drives ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``). Every rank draws the same batch order, loads the global batch,
+repeat-pads a short one to a multiple of N as satpu does, and trains on its
+contiguous block; the step is the global batch's (``chain.trainer``).
+``minibatch_size`` must be a multiple of N. Rank 0 alone writes the
+checkpoints, ``metrics.jsonl`` and the logs.
 
 Usage (from the repository root):
   python -m satpu_torch.bin.train_asr --config egs/asr/librispeech/configs/tdnnf_wav2vec2_vq_48.ini
+  torchrun --nproc-per-node 2 -m satpu_torch.bin.train_asr --config ...
   python -m satpu_torch.bin.train_asr --train-set data/x --fst-scp ... --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import math
@@ -156,6 +165,16 @@ def main(argv=None) -> int:
     opts.load_from_args(rest)
     _check_supported(opts)
 
+    from .. import resolve_device
+    from ..parallel import mesh, multihost
+
+    mesh.check_batch_divisible(opts.minibatch_size, multihost.configured_world_size())
+    with multihost.distributed(resolve_device(opts.device)):
+        return _train(opts)
+
+
+def _train(opts: TrainAsrOpts) -> int:
+    import numpy as np
     import torch
 
     from .. import infer_helper, resolve_device
@@ -164,9 +183,13 @@ def main(argv=None) -> int:
     from ..chain.objf import DenominatorGraph
     from ..chain.trainer import ChainTrainer, ChainTrainOpts
     from ..ops.augment import load_augmentation
-    from ..utils.metrics import MetricsWriter
+    from ..parallel import mesh, multihost
+    from ..utils.metrics import MetricsWriter, profile_steps
 
-    dev = resolve_device(opts.device)
+    dev = multihost.local_device(resolve_device(opts.device))
+    world, rank = mesh.world(), mesh.rank()
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
     os.makedirs(opts.dirname, exist_ok=True)
     den = DenominatorGraph.from_fst(Fst.read(opts.den_fst), num_pdfs=opts.num_pdfs)
     norm_fst = opts.normalization_fst or None
@@ -198,6 +221,7 @@ def main(argv=None) -> int:
         logging.info("init_weight_model %s: %d tensors transferred, %d skipped%s",
                      opts.init_weight_model, len(matched), len(unmatched),
                      f" ({', '.join(unmatched[:5])}...)" if unmatched else "")
+    mesh.broadcast_module(model)
 
     sampler = BucketBatchSampler(ds, opts.minibatch_size)
     total_steps = max(len(sampler), 1) * opts.num_epochs
@@ -246,6 +270,11 @@ def main(argv=None) -> int:
         logging.info("resuming from %s (epoch %d, step %d)", last, start_epoch, steps)
 
     def save(epoch: int, final: bool = False) -> None:
+        if rank == 0:
+            _save(epoch, final)
+        mesh.barrier()
+
+    def _save(epoch: int, final: bool) -> None:
         name = "final.ckpt" if final else f"{steps}.ckpt"
         infer_helper.save_model(os.path.join(opts.dirname, name), model_id,
                                 build_params, model.state_dict(), extra_meta={"steps": steps})
@@ -259,32 +288,42 @@ def main(argv=None) -> int:
     def valid_objf() -> Optional[float]:
         return compute_valid_objf(model, den, valid_ds, opts.minibatch_size, topts, to_dev)
 
-    with MetricsWriter(opts.dirname) as metrics_log:
+    with MetricsWriter(opts.dirname) if rank == 0 else contextlib.nullcontext() as metrics_log:
         for epoch in range(start_epoch, opts.num_epochs):
             sampler.set_epoch(epoch)
-            for batch_idx in sampler:
-                wavs, graphs, frames, utts = ds.load_batch(batch_idx)
-                kw = {}
-                if spk_index is not None:
-                    kw["spk_target"] = torch.tensor([spk_index.get(u, 0) for u in utts],
-                                                    device=dev)
-                metrics = trainer.step(*to_dev(wavs, graphs, frames), **kw)
-                steps += 1
-                if steps % opts.diagnostics_interval == 0:
-                    scal = {k: float(v) for k, v in metrics.items()}
-                    logging.info("epoch %d step %d objf %.4f (num %.3f den %.3f) lr %.5f",
-                                 epoch, steps, scal["chain_objf"], scal["num_logprob"],
-                                 scal["den_logprob"], scal["lr"])
-                    if valid_ds is not None:
-                        v = valid_objf()
-                        if v is not None:
-                            scal["valid_objf"] = v
-                            logging.info("  valid objf %.4f", v)
-                    metrics_log.write(steps, scal, epoch=epoch)
-                if steps % opts.checkpoint_interval == 0:
-                    save(epoch)
+            with profile_steps(opts.dirname, enabled=None if rank == 0 else False):
+                for batch_idx in sampler:
+                    wavs, graphs, frames, utts = ds.load_batch(batch_idx)
+                    spk = (np.asarray([spk_index.get(u, 0) for u in utts])
+                           if spk_index is not None else None)
+                    if world > 1:
+                        # satpu's repeat-padding of a short batch, then this
+                        # rank's contiguous block
+                        rows = np.asarray(mesh.repeat_pad_rows(len(frames), world)
+                                          or range(len(frames)))
+                        rows = rows[mesh.local_batch_slice(len(rows), rank, world)]
+                        wavs, frames = wavs[rows], frames[rows]
+                        graphs = {k: np.asarray(v)[rows] for k, v in graphs.items()}
+                        spk = spk[rows] if spk is not None else None
+                    kw = {} if spk is None else {"spk_target": torch.from_numpy(spk).to(dev)}
+                    metrics = trainer.step(*to_dev(wavs, graphs, frames), **kw)
+                    steps += 1
+                    if steps % opts.diagnostics_interval == 0 and rank == 0:
+                        scal = {k: float(v) for k, v in metrics.items()}
+                        logging.info("epoch %d step %d objf %.4f (num %.3f den %.3f) lr %.5f",
+                                     epoch, steps, scal["chain_objf"], scal["num_logprob"],
+                                     scal["den_logprob"], scal["lr"])
+                        if valid_ds is not None:
+                            v = valid_objf()
+                            if v is not None:
+                                scal["valid_objf"] = v
+                                logging.info("  valid objf %.4f", v)
+                        metrics_log.write(steps, scal, epoch=epoch)
+                    if steps % opts.checkpoint_interval == 0:
+                        save(epoch)
             save(epoch + 1)
-        final_combination(opts, model, valid_ds, valid_objf)
+        if rank == 0:
+            final_combination(opts, model, valid_ds, valid_objf)
         save(opts.num_epochs, final=True)
     return 0
 

@@ -16,18 +16,24 @@ The learning-rate schedule's epoch length is satpu's: speakers x
 ``samples_per_speaker`` / ``minibatch_size`` steps, though the sampler
 yields ``examples_per_speaker`` times more (ROADMAP, "satpu-side gaps").
 
-Runs on ``--device`` (CUDA unless ``--device cpu``), unsharded on one
-device, with TF32 off (the flags are restored on return). Multi-process
-data parallelism (``WORLD_SIZE > 1``) is not ported (ROADMAP Queue 1,
-item 15).
+Runs on ``--device`` (CUDA unless ``--device cpu``) with TF32 off (the
+flags are restored on return). Under ``torchrun --nproc-per-node N`` it
+trains data-parallel as satpu's ``data`` mesh does: rank r drives
+``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``), every rank draws
+the same global batch and trains on its contiguous block
+(``sidekit.trainer``: the batch norms and SpecAugment draws are the global
+batch's); ``minibatch_size`` must be a multiple of N; rank 0 alone writes
+the checkpoints, ``metrics.jsonl`` and the logs.
 
 Usage (from the repository root):
   python -m satpu_torch.bin.train_asv --config egs/asv/voxceleb/configs/ecapa.ini
+  torchrun --nproc-per-node 2 -m satpu_torch.bin.train_asv --config ...
   python -m satpu_torch.bin.train_asv --train-set data/x --dirname exp/asv --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
@@ -98,12 +104,11 @@ def main(argv=None) -> int:
             if sec != "var":
                 opts.load_from_config(kv)
     opts.load_from_args(rest)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process data-parallel ASV training is not ported to "
-                                  "satpu_torch yet (ROADMAP item 15)")
-    from .. import f32_matmuls
+    from .. import f32_matmuls, resolve_device
+    from ..parallel import mesh, multihost
 
-    with f32_matmuls():
+    mesh.check_batch_divisible(opts.minibatch_size, multihost.configured_world_size())
+    with multihost.distributed(resolve_device(opts.device)), f32_matmuls():
         return _train(opts)
 
 
@@ -116,10 +121,14 @@ def _train(opts: TrainAsvOpts) -> int:
     from ..sidekit.dataset import SideSampler, SideSet
     from ..sidekit.trainer import (AsvTrainer, TrainingMonitor, extract_xvectors,
                                    make_asv_optimizer, validation_eer)
+    from ..parallel import mesh, multihost
     from ..sidekit.xvector import XVectorConfig
     from ..utils.metrics import MetricsWriter
 
-    dev = resolve_device(opts.device)
+    dev = multihost.local_device(resolve_device(opts.device))
+    world, rank = mesh.world(), mesh.rank()
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
     os.makedirs(opts.dirname, exist_ok=True)
     aug, noise_db, rir_db = load_augmentation(opts.augmentation)
     if aug:
@@ -140,6 +149,7 @@ def _train(opts: TrainAsvOpts) -> int:
         model.load_state_dict(merged)
         logging.info("init_weight_model %s: %d tensors transferred, %d skipped",
                      opts.init_weight_model, len(matched), len(unmatched))
+    mesh.broadcast_module(model)
     optimizer = make_asv_optimizer(model, lr=opts.lr, weight_decay=opts.weight_decay,
                                    head_weight_decay=opts.head_weight_decay)
     spe = steps_per_epoch(len(speakers), opts)
@@ -162,7 +172,7 @@ def _train(opts: TrainAsvOpts) -> int:
 
     sampler = SideSampler(side.chunk_speakers, len(speakers), opts.examples_per_speaker,
                           opts.samples_per_speaker, opts.minibatch_size, seed=opts.seed)
-    with MetricsWriter(opts.dirname) as metrics_log:
+    with MetricsWriter(opts.dirname) if rank == 0 else contextlib.nullcontext() as metrics_log:
         for epoch in range(start_epoch, opts.epochs):
             sampler.set_epoch(epoch)
             # the SpecAugment masks' stream, one an epoch (a resumed run draws
@@ -170,6 +180,9 @@ def _train(opts: TrainAsvOpts) -> int:
             gen = torch.Generator(device=dev).manual_seed(opts.seed + 1 + epoch)
             losses = []
             for wav, spk in side.batches(sampler, opts.minibatch_size):
+                if world > 1:  # this rank's contiguous block of the global batch
+                    rows = mesh.local_batch_slice(len(wav), rank, world)
+                    wav, spk = wav[rows], spk[rows]
                 metrics = trainer.train_step(torch.from_numpy(wav).to(dev),
                                              torch.from_numpy(spk).long().to(dev), gen)
                 losses.append(metrics["loss"])
@@ -178,17 +191,20 @@ def _train(opts: TrainAsvOpts) -> int:
             # a quick validation on up to 64 chunks of the training set, each
             # read twice as satpu reads it (for the audio, then the label): the
             # reads move the set's random streams, and the next epoch's crops
-            # depend on them
+            # depend on them (every rank validates: the streams and the early
+            # stop stay alike)
             val_idx = list(range(0, len(side), max(len(side) // 64, 1)))[:64]
             wavs = [side[i][0] for i in val_idx]
             labels = np.asarray([side[i][1] for i in val_idx])
             model.eval()
             eer = validation_eer(extract_xvectors(model, wavs), labels)
             is_best = monitor.update(epoch, eer)
-            metrics_log.write(trainer.step, {"loss": loss, "val_eer": eer}, epoch=epoch)
             logging.info("epoch %d loss %.3f val-EER %.2f%%%s", epoch, loss, eer * 100,
                          " (best)" if is_best else "")
-            _save(opts, build_params, trainer, monitor, epoch, speakers, is_best)
+            if rank == 0:
+                metrics_log.write(trainer.step, {"loss": loss, "val_eer": eer}, epoch=epoch)
+                _save(opts, build_params, trainer, monitor, epoch, speakers, is_best)
+            mesh.barrier()
             if monitor.should_stop:
                 logging.info("early stop at epoch %d (best %.2f%% @ %d)", epoch,
                              monitor.best_eer * 100, monitor.best_epoch)

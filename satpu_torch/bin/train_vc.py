@@ -14,19 +14,29 @@ serves: the trained generator with the frozen extractor), ``d_<steps>.ckpt``
 ``trainer_<steps>.ckpt`` (the optimizers), a ``g_best.ckpt`` symlink, and a
 sliding GC. A rerun resumes from the last triplet.
 
-Runs on ``--device`` (CUDA unless ``--device cpu``), unsharded on one
-device, with TF32 off (the flags are restored on return). Multi-process
-data parallelism (``WORLD_SIZE > 1``) is not ported (ROADMAP Queue 1,
-item 15).
+Runs on ``--device`` (CUDA unless ``--device cpu``) with TF32 off (the
+flags are restored on return). Under ``torchrun --nproc-per-node N`` it
+trains data-parallel as satpu's multi-host step does: rank r drives
+``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``), takes the
+host-local batches of ``minibatch_size / N`` (``HifiGanDataset.batches``
+with its process index), and the step is the global batch's
+(``hifigan.trainer``). Every rank takes as many steps an epoch as the rank
+with the fewest batches, so that no collective waits for a rank that has
+run out; each rank caches its features in its own shard (``w<rank>``), and
+rank 0 alone validates and writes the checkpoints, ``metrics.jsonl`` and
+the logs.
 
 Usage (from the repository root):
   python -m satpu_torch.bin.train_vc --config egs/vc/libritts/configs/hifigan.ini
+  torchrun --nproc-per-node 2 -m satpu_torch.bin.train_vc --config ...
   python -m satpu_torch.bin.train_vc --train-set data/x --dirname exp/vc --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 import sys
@@ -81,15 +91,25 @@ def main(argv=None) -> int:
             if sec in ini:
                 opts.load_from_config(ini[sec])
     opts.load_from_args(rest)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process data-parallel GAN training is not ported to "
-                                  "satpu_torch yet (ROADMAP item 15)")
-    from .. import f32_matmuls
+    from .. import f32_matmuls, resolve_device
+    from ..parallel import mesh, multihost
 
+    mesh.check_batch_divisible(opts.minibatch_size, multihost.configured_world_size())
     # f32 stays f32 on the card: the f32 policy's convs, and the bf16
     # policy's f32 parts (the spectral-norm scale, the mel loss)
-    with f32_matmuls():
+    with multihost.distributed(resolve_device(opts.device)), f32_matmuls():
         return _train(opts)
+
+
+def steps_per_epoch(n_items: int, local_bs: int, world: int) -> int:
+    """The batches every rank takes an epoch: the fewest that
+    ``HifiGanDataset.batches`` gives a rank (process k holds items k::P, a
+    short tail wraps around, fewer items than a batch give none)."""
+    counts = []
+    for k in range(world):
+        n = len(range(k, n_items, world))
+        counts.append(0 if n < local_bs else -(-n // local_bs))
+    return min(counts)
 
 
 def _train(opts) -> int:
@@ -99,10 +119,15 @@ def _train(opts) -> int:
     from ..hifigan.dataset import HifiGanDataset
     from ..hifigan.trainer import GanHparams, GanTrainer, batch_to, split_generator_params
     from ..models.anonymizer import AnonymizationNet
+    from ..parallel import mesh, multihost
     from ..utils import kaldi_data
-    from ..utils.metrics import MetricsWriter
+    from ..utils.metrics import MetricsWriter, profile_steps
 
-    dev = resolve_device(opts.device)
+    dev = multihost.local_device(resolve_device(opts.device))
+    world, rank = mesh.world(), mesh.rank()
+    local_bs = multihost.host_local_batch_size(opts.minibatch_size, world)
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
     os.makedirs(opts.dirname, exist_ok=True)
     utt2spk = kaldi_data.read_keyed_text(os.path.join(opts.train_set, "utt2spk"))
     speakers = sorted(set(utt2spk.values()))
@@ -150,7 +175,8 @@ def _train(opts) -> int:
     # the cache signature ties cached BN features to the extractor
     bn_sig = f"{opts.asrbn_checkpoint}|{asrbn_cfg}"
     ds = HifiGanDataset(opts.train_set, speakers=speakers, bn_fn=bn_fn, f0_fn=f0_fn,
-                        segment_size=opts.segment_size, cache_signature=bn_sig)
+                        segment_size=opts.segment_size, cache_signature=bn_sig,
+                        worker_name=f"w{rank}")
     f0_cmvn = None
     if opts.f0_norm == "speaker":
         from ..ops.cmvn import SpeakerCMVN
@@ -169,6 +195,9 @@ def _train(opts) -> int:
                    lr_decay=opts.lr_decay, segment_size=opts.segment_size,
                    compute_dtype=opts.compute_dtype)
     trainer = GanTrainer(model, h)
+    mesh.broadcast_module(model)
+    mesh.broadcast_module(trainer.mpd)
+    mesh.broadcast_module(trainer.msd)
 
     dev_ds = None
     if opts.dev_set:
@@ -194,39 +223,48 @@ def _train(opts) -> int:
         logging.info("resuming from %s (epoch %d, step %d, best_val %.4f)",
                      last, start_epoch, steps, best_val)
 
-    with MetricsWriter(opts.dirname) as metrics_log:
+    with MetricsWriter(opts.dirname) if rank == 0 else contextlib.nullcontext() as metrics_log:
 
         def validate_and_save(epoch, steps, best_val):
+            # every rank validates (the generator's random stream stays alike
+            # on every rank); rank 0 writes
             val_err = None
             if dev_ds is not None:
                 errs = [float(trainer.eval_step(batch_to(b, dev)))
                         for b in dev_ds.batches(opts.minibatch_size, shuffle=False)]
                 if errs:
                     val_err = sum(errs) / len(errs)
-                    metrics_log.write(steps, {"val_mel_error": val_err}, epoch=epoch)
                     logging.info("validation mel error: %.4f (best %.4f)", val_err, best_val)
-            _save(opts, build_params, trainer, epoch, steps, speakers, best_val, f0_cmvn)
+            if rank == 0:
+                if val_err is not None:
+                    metrics_log.write(steps, {"val_mel_error": val_err}, epoch=epoch)
+                _save(opts, build_params, trainer, epoch, steps, speakers, best_val, f0_cmvn)
             if val_err is not None and val_err < best_val:
                 best_val = val_err
-                best = os.path.join(opts.dirname, "g_best.ckpt")
-                if os.path.lexists(best):
-                    os.remove(best)
-                os.symlink(f"g_{steps}.ckpt", best)
+                if rank == 0:
+                    best = os.path.join(opts.dirname, "g_best.ckpt")
+                    if os.path.lexists(best):
+                        os.remove(best)
+                    os.symlink(f"g_{steps}.ckpt", best)
+            mesh.barrier()
             return best_val
 
+        n_steps = steps_per_epoch(len(ds), local_bs, world)
         for epoch in range(start_epoch, opts.training_epochs):
-            for batch in ds.batches(opts.minibatch_size, epoch=epoch):
-                t0 = time.time()
-                metrics = trainer.train_step(batch_to(batch, dev))
-                steps += 1
-                if steps % 50 == 0:
-                    scal = {k: float(v) for k, v in metrics.items()}
-                    logging.info("Epoch %d Steps %d Gen Loss %.3f Mel err %.3f s/b %.3f",
-                                 epoch + 1, steps, scal["loss_gen_all"],
-                                 scal["mel_spec_error"], time.time() - t0)
-                    metrics_log.write(steps, scal, epoch=epoch)
-                if steps % opts.checkpoint_interval == 0:
-                    best_val = validate_and_save(epoch, steps, best_val)
+            batches = ds.batches(local_bs, epoch=epoch, process_index=rank, process_count=world)
+            with profile_steps(opts.dirname, enabled=None if rank == 0 else False):
+                for batch in itertools.islice(batches, n_steps):
+                    t0 = time.time()
+                    metrics = trainer.train_step(batch_to(batch, dev))
+                    steps += 1
+                    if steps % 50 == 0 and rank == 0:
+                        scal = {k: float(v) for k, v in metrics.items()}
+                        logging.info("Epoch %d Steps %d Gen Loss %.3f Mel err %.3f s/b %.3f",
+                                     epoch + 1, steps, scal["loss_gen_all"],
+                                     scal["mel_spec_error"], time.time() - t0)
+                        metrics_log.write(steps, scal, epoch=epoch)
+                    if steps % opts.checkpoint_interval == 0:
+                        best_val = validate_and_save(epoch, steps, best_val)
             trainer.epoch += 1
             best_val = validate_and_save(epoch + 1, steps, best_val)
     logging.info("training done at %d steps", steps)

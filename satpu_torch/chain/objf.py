@@ -244,14 +244,18 @@ def chain_objf_and_grad(chain_out: torch.Tensor, xent_out: Optional[torch.Tensor
                         num_frames: Optional[torch.Tensor] = None,
                         leaky_hmm_coefficient: float = 1e-5,
                         l2_regularize: float = 1e-4,
-                        xent_regularize: float = 0.025
+                        xent_regularize: float = 0.025,
+                        tot_frames: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss (to minimize) and diagnostics: -(num - den) per frame,
     plus 0.5 * l2_regularize * |chain_out|^2 per frame, minus
     xent_regularize * the xent objective under the numerator posteriors
     (d num / d chain_out, held constant). Differentiable in chain_out and
-    xent_out."""
-    tot_frames = _total_frames(chain_out, num_frames)
+    xent_out. Every term divides by ``tot_frames``, this batch's frame count
+    unless given (the global batch's under data parallelism, where the loss
+    and each diagnostic are this rank's share)."""
+    if tot_frames is None:
+        tot_frames = _total_frames(chain_out, num_frames)
     num_ll = num_forward(chain_out, num_graphs, num_frames)
     den_ll = den_forward(chain_out, den, leaky_hmm_coefficient)
     objf = torch.sum(num_ll - den_ll)

@@ -29,6 +29,15 @@ rate, so both run as parameter groups whose learning rate is the step's
 lr x mult (and 0 when frozen): the same update as satpu's scaling of the
 update, and the moments advance as there.
 
+Under a process group (``parallel.mesh``; each rank holds a contiguous
+block of the global batch) the step is the global batch's, as satpu's mesh
+step is: the network's batch statistics are global, the objective divides
+by the global frame count, and one sync point (``chain.sync``) sums the
+raw gradients and the NG statistics over the ranks before NG, so clipping,
+AdamW and the orthonormal constraint run alike on every rank. The metrics
+are the global batch's; dropout masks and DP noise are the global batch's
+draws, cut to the rank's rows (``parallel.mesh.global_rows``).
+
 The natural-gradient states live here, keyed by module name
 (``ng_states``), not in the model's state_dict: a trained checkpoint has
 exactly the serving extractor's keys.
@@ -44,12 +53,16 @@ from torch.profiler import record_function
 
 from ..models.tdnnf import NaturalAffineTransform, constrain_orthonormal, orthonormal_weights
 from ..models.torchlayers import autocast
+from ..parallel import mesh
 from . import ngsgd
-from .objf import DenominatorGraph, chain_objf_and_grad
+from .objf import DenominatorGraph, _total_frames, chain_objf_and_grad
 
 # the profiler ranges of a step, ``chain.<phase>``, in order
-PHASES = ("net_forward", "objective_forward", "objective_backward", "net_backward", "ng",
-          "optimizer")
+PHASES = ("net_forward", "objective_forward", "objective_backward", "net_backward", "sync",
+          "ng", "optimizer")
+# metrics that hold one value on every rank under data parallelism (the rest
+# are each rank's share of the global value)
+REPLICATED_METRICS = ("vq_perplexity",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,10 +171,14 @@ class ChainTrainer:
         with record_function("chain.objective_forward"):
             co = chain_out.detach().float().requires_grad_(True)
             xo = xent_out.detach().float().requires_grad_(True)
+            tot_frames = None
+            if mesh.active():
+                tot_frames = mesh.all_reduce_(_total_frames(co, num_frames).clone())
             loss, metrics = chain_objf_and_grad(
                 co, xo, num_graphs, self.den, num_frames=num_frames,
                 leaky_hmm_coefficient=o.leaky_hmm_coefficient,
-                l2_regularize=o.l2_regularize, xent_regularize=o.xent_regularize)
+                l2_regularize=o.l2_regularize, xent_regularize=o.xent_regularize,
+                tot_frames=tot_frames)
         with record_function("chain.objective_backward"):
             loss.backward()
         with record_function("chain.net_backward"):
@@ -174,6 +191,11 @@ class ChainTrainer:
                     grads.append(torch.ones_like(value))
                 metrics[name] = value.detach().float()
             torch.autograd.backward(outputs, grads)
+        if mesh.active():
+            with record_function("chain.sync"):
+                self._sum_over_ranks()
+                metrics = mesh.sum_metrics({**metrics, "loss": loss}, REPLICATED_METRICS)
+                loss = metrics.pop("loss")
         if self.ng_slots:
             with record_function("chain.ng"):
                 mods = dict(ng_layers(self.model))
@@ -183,6 +205,26 @@ class ChainTrainer:
                 for n, (gw, gb) in pre.items():
                     mods[n].weight.grad, mods[n].bias.grad = gw.contiguous(), gb.contiguous()
         return loss.detach(), metrics
+
+    @torch.no_grad()
+    def _sum_over_ranks(self) -> None:
+        """The one sync point of a data-parallel step, between the network's
+        backward and NG: every raw gradient, and each NG side's statistics
+        (J N, n and N; J is a mean over N rows), summed over the ranks in
+        one collective per dtype. NG then preconditions the global batch's
+        gradient from the global batch's statistics, identically on every
+        rank."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        stats = [st for slot in self.ng_slots.values() if slot.stats is not None
+                 for st in slot.stats.values()]
+        for st in stats:
+            st["J"] = st["J"] * st["N"]
+        mesh.all_reduce_tensors_([p.grad for p in self.params]
+                                 + [st[k] for st in stats for k in ("J", "n", "N")])
+        for st in stats:
+            st["J"] = st["J"] / st["N"]
 
     @torch.no_grad()
     def apply_grads(self, lr: float) -> None:

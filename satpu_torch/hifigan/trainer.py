@@ -17,6 +17,12 @@ twice with the same parameters; the value is the same).
 
 Each phase of a step is a ``torch.profiler.record_function`` range named
 ``gan.<phase>`` (``PHASES``).
+
+Under a process group (``parallel.mesh``) each rank trains on its block of
+the global batch: its losses are its shares of the global batch's means,
+the D gradients are summed over the ranks after the D backward and the G
+gradients after the G backward (whose backward reaches no D parameter), so
+both optimizers step alike on every rank.
 """
 from __future__ import annotations
 
@@ -28,12 +34,13 @@ import torch
 from torch.profiler import record_function
 
 from ..models.anonymizer import AnonymizationNet
+from ..parallel import mesh
 from ..models.hifigan import (MultiPeriodDiscriminator, MultiScaleDiscriminator,
                               discriminator_loss, feature_loss, generator_loss)
 from ..ops.mel import mel_spectrogram
 
-PHASES = ("generator", "d_forward", "d_backward", "d_optimizer", "g_forward", "g_backward",
-          "g_optimizer")
+PHASES = ("generator", "d_forward", "d_backward", "d_sync", "d_optimizer", "g_forward",
+          "g_backward", "g_sync", "g_optimizer")
 GENERATOR_PREFIX = "hifigan."
 
 
@@ -148,9 +155,15 @@ class GanTrainer:
             df_r, df_g, _, _ = self.mpd(y3, yg3)
             ds_r, ds_g, _, _ = self.msd(y3, yg3, update_sn=True)
             loss_d = discriminator_loss(df_r, df_g)[0] + discriminator_loss(ds_r, ds_g)[0]
+        n = mesh.world()
+        if mesh.active():
+            loss_d = loss_d / n  # this rank's share of the global batch's mean
         with record_function("gan.d_backward"):
             self.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+        if mesh.active():
+            with record_function("gan.d_sync"):
+                mesh.sum_grads_(self.d_params)
         with record_function("gan.d_optimizer"):
             self.opt_d.step()
 
@@ -164,14 +177,22 @@ class GanTrainer:
             loss_g = (generator_loss(ds_g)[0] + generator_loss(df_g)[0]
                       + feature_loss(fmap_s_r, fmap_s_g) + feature_loss(fmap_f_r, fmap_f_g)
                       + loss_mel)
+            if mesh.active():
+                loss_g, loss_mel = loss_g / n, loss_mel / n
         with record_function("gan.g_backward"):
             self.opt_g.zero_grad(set_to_none=True)
+            # the discriminators take no gradient from the G step
             loss_g.backward(inputs=self.g_params)
+        metrics = {"loss_gen_all": loss_g.detach(), "loss_disc_all": loss_d.detach(),
+                   "mel_spec_error": loss_mel.detach() / h.mel_weight}
+        if mesh.active():
+            with record_function("gan.g_sync"):
+                mesh.sum_grads_(self.g_params)
+                metrics = mesh.sum_metrics(metrics)
         with record_function("gan.g_optimizer"):
             self.opt_g.step()
         self.step += 1
-        return {"loss_gen_all": loss_g.detach(), "loss_disc_all": loss_d.detach(),
-                "mel_spec_error": loss_mel.detach() / h.mel_weight, "lr": lr}
+        return {**metrics, "lr": lr}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

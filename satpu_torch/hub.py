@@ -1,5 +1,5 @@
-"""Model distribution: the torch.hub analog (port of ``satpu.hub``, its
-loading half; the AOT export waits for ROADMAP item 15).
+"""Model distribution: the torch.hub analog and the AOT export (port of
+``satpu.hub``).
 
 The reference resolves a tag to a GitHub-release checkpoint
 (``torch.hub.load(..., "anonymization", tag_version=...)``, hubconf.py:
@@ -14,11 +14,22 @@ Without network, convert a reference release into the zoo with
 ``python -m satpu_torch.bin.import_model --torch-checkpoint final.pt --tag
 <tag>`` (``final.pt`` from ``reference_release_url(tag)``). A zoo file
 may be a port checkpoint or a satpu one: ``load_model`` reads both.
+
+``export_convert`` / ``export_fn`` write a frozen program (``final.jit``'s
+analog): ``torch.export`` of the anonymizer's F0 + convert (or of an
+extractor's ``loglikes`` / ``extract_bn``) at fixed shapes, saved as a
+``.pt2`` file; ``load_exported`` runs it with none of the model's code.
+YAAPT's SHC band is the registered op ``satpu_torch::shc_band`` in the
+program (its kernel on the card), so loading needs that op registered:
+``import satpu_torch.ops.yaapt`` first. satpu's StableHLO export runs with
+plain jax instead.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Tuple
+
+import torch
 
 from . import infer_helper, resolve_device
 
@@ -107,3 +118,50 @@ def load(tag_or_path: str, device="cuda"):
     base, opts = _parse_option_args(tag_or_path)
     path = resolve(tag_or_path if os.path.exists(tag_or_path) else base)
     return infer_helper.load_model(path, option_args=opts or None, device=device)
+
+
+# ---------------------------------------------------------------------------
+# AOT export (final.jit analog)
+# ---------------------------------------------------------------------------
+
+
+class _Fn(torch.nn.Module):
+    """A function of a model as the module ``torch.export`` traces."""
+
+    def __init__(self, model: torch.nn.Module, fn):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def export_fn(model: torch.nn.Module, fn, example_args, path: str) -> str:
+    """``torch.export`` of ``fn(model, *example_args)`` at the examples'
+    shapes, saved to ``path`` (a ``.pt2`` file)."""
+    program = torch.export.export(_Fn(model, fn), tuple(example_args), strict=False)
+    torch.export.save(program, path)
+    return path
+
+
+def load_exported(path: str):
+    """Load an exported program; returns a callable module (it runs with
+    none of the model's code). The ``satpu_torch::shc_band`` op must be
+    registered: this function imports its registration."""
+    from .ops import yaapt  # noqa: F401  registers satpu_torch::shc_band
+
+    return torch.export.load(path).module()
+
+
+def _convert(model, wav, tid):
+    return model.convert(wav, model.get_f0(wav), tid)
+
+
+def export_convert(model, path: str, batch: int = 1, num_samples: int = 160000) -> str:
+    """AOT-export the anonymizer's fused F0 + convert for fixed (batch,
+    num_samples) on the model's device (chain/model.py:167-174 jit_save
+    analog)."""
+    device = next(model.parameters()).device
+    wav = torch.zeros((batch, num_samples), device=device)
+    tid = torch.zeros((batch,), dtype=torch.int64, device=device)
+    return export_fn(model, _convert, (wav, tid), path)

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cmvn import utt_cmvn
+from ..parallel import mesh
 from ..ops.fbank import fbank as kaldi_fbank
 from .tdnnf import (
     NaturalAffineTransform,
@@ -80,8 +81,9 @@ class DpLaplaceBottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lo = -0.5 + 1e-7
-        u = torch.rand(x.shape, generator=self.generator, device=x.device,
-                       dtype=x.dtype) * (0.5 - lo) + lo
+        u = mesh.global_rows(lambda shape: torch.rand(
+            shape, generator=self.generator, device=x.device, dtype=x.dtype), x.shape)
+        u = u * (0.5 - lo) + lo
         return laplace_noise(x, u, self.epsilon)
 
 
@@ -149,7 +151,8 @@ class TDNNFNet(nn.Module):
         if not self.training or p <= 0:
             return x
         keep = 1.0 - p
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = mesh.global_rows(
+            lambda shape: torch.rand(shape, generator=generator, device=x.device), x.shape) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def _stage1(self, wav: torch.Tensor, lengths: Optional[torch.Tensor],

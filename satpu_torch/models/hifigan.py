@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 LRELU_SLOPE = 0.1
 
 
@@ -486,8 +488,9 @@ def quantize_f0(x: torch.Tensor, num_bins: int = 16) -> torch.Tensor:
 def awgn_f0(pitch: torch.Tensor, generator: Optional[torch.Generator] = None,
             target_noise_db: float = 10.0) -> torch.Tensor:
     target_noise_watts = 10.0 ** (target_noise_db / 10.0)
-    noise = torch.randn(pitch.shape, generator=generator, device=pitch.device,
-                        dtype=pitch.dtype) * np.sqrt(target_noise_watts)
+    noise = mesh.global_rows(lambda shape: torch.randn(
+        shape, generator=generator, device=pitch.device, dtype=pitch.dtype), pitch.shape)
+    noise = noise * np.sqrt(target_noise_watts)
     return torch.where(pitch == 0, 0.0, pitch + noise)
 
 

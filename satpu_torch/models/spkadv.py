@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel import mesh
 from ..sidekit.archi import PreHalfResNet34
 from ..sidekit.loss import ArcMarginProduct
 from ..sidekit.pooling import AttentivePooling
@@ -58,8 +59,12 @@ class SpkAdvTDNNFNet(nn.Module):
         if spk_target is not None:
             h = rev_grad(bn, self.rev_alpha) if self.adversarial else bn
             loss, logits = self.speaker_logits(h, spk_target)
-            aux["spkadv_loss"] = self.adv_weight * loss
-            aux["spkadv_accuracy"] = (logits.argmax(-1) == spk_target).float().mean().detach()
+            # under data parallelism each rank's (equal) block gives its
+            # share of the global batch's mean
+            share = 1.0 / mesh.world()
+            aux["spkadv_loss"] = self.adv_weight * loss * share
+            aux["spkadv_accuracy"] = ((logits.argmax(-1) == spk_target).float().mean().detach()
+                                      * share)
         return chain_out, xent_out, aux
 
     def extract_bn(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None,

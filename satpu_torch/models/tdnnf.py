@@ -21,7 +21,10 @@ gradient on every affine runs on spliced rows through
 ``chain.ngsgd.NatAffine`` once the trainer has given it an ``ng_slot``.
 ``constrain_orthonormal`` is the orthonormal constraint on the ``inner_nat``
 weights, applied between steps. ``rev_grad`` is the gradient reversal of the
-speaker-adversarial net.
+speaker-adversarial net. Under a process group (``parallel.mesh``) the
+batch of these statistics is the global one: the moments, the codebook's
+counts and the commitment loss's count are summed over the ranks, and the
+commitment loss a rank returns is its share of the global mean.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 # satpu's fixed training constants: the VQ's commitment weight and EMA
 # decay/smoothing, and the batch norm's running-statistics momentum
@@ -176,15 +181,22 @@ class VectorQuantizerEMA(nn.Module):
         self.ema_w.copy_(torch.randn(self.ema_w.shape, generator=generator))
 
     @torch.no_grad()
-    def _ema_update(self, flat: torch.Tensor, indices: torch.Tensor) -> None:
+    def _ema_update(self, flat: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        """The EMA update from this batch's assignments (the global batch's
+        under data parallelism); returns the batch's counts per code."""
         K = self.num_embeddings
         one_hot = F.one_hot(indices, K).to(flat.dtype)
-        cs = self.ema_cluster_size * VQ_DECAY + (1 - VQ_DECAY) * one_hot.sum(0)
+        counts, dw = one_hot.sum(0), one_hot.T @ flat
+        if mesh.active():
+            both = mesh.all_reduce_(torch.cat([counts[:, None], dw], 1))
+            counts, dw = both[:, 0], both[:, 1:]
+        cs = self.ema_cluster_size * VQ_DECAY + (1 - VQ_DECAY) * counts
         n = cs.sum()
         cs = (cs + VQ_EPSILON) / (n + K * VQ_EPSILON) * n
-        self.ema_w.mul_(VQ_DECAY).add_((1 - VQ_DECAY) * (one_hot.T @ flat))
+        self.ema_w.mul_(VQ_DECAY).add_((1 - VQ_DECAY) * dw)
         self.ema_cluster_size.copy_(cs)
         self.embedding.copy_(self.ema_w / cs[:, None])
+        return counts
 
     def forward(self, inputs: torch.Tensor):
         """inputs [B, C, T] (f32)."""
@@ -197,12 +209,18 @@ class VectorQuantizerEMA(nn.Module):
         indices = distances.argmin(dim=1)
         vq_loss = perplexity = None
         if self.training:
-            self._ema_update(flat.detach(), indices)
+            counts = self._ema_update(flat.detach(), indices)
         quantized = self.embedding[indices].reshape(x.shape)
         if self.training:
-            vq_loss = VQ_COMMITMENT_COST * torch.mean((quantized.detach() - x) ** 2)
-            avg_probs = (torch.bincount(indices, minlength=self.num_embeddings).float()
-                         / flat.shape[0])
+            if mesh.active():
+                # this rank's share of the global batch's mean
+                n = counts.sum()
+                vq_loss = VQ_COMMITMENT_COST * ((quantized.detach() - x) ** 2).sum() / (n * C)
+                avg_probs = counts.float() / n
+            else:
+                vq_loss = VQ_COMMITMENT_COST * torch.mean((quantized.detach() - x) ** 2)
+                avg_probs = (torch.bincount(indices, minlength=self.num_embeddings).float()
+                             / flat.shape[0])
             perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
         # straight-through estimator, literally: in f32 its value is not
         # exactly `quantized`
@@ -346,8 +364,17 @@ class BatchNormStats(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+            if mesh.active():
+                # the global batch's moments: sum x, x^2 and the count over
+                # the ranks (differentiably)
+                C = x.shape[1]
+                s = mesh.global_sum(torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+                                               x.new_full((1,), x.shape[0] * x.shape[2])]))
+                mean, ex2 = s[:C] / s[-1], s[C:2 * C] / s[-1]
+            else:
+                mean = x.mean(dim=(0, 2))
+                ex2 = (x * x).mean(dim=(0, 2))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
                 self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)

@@ -8,10 +8,20 @@ import numpy as np
 import torch
 
 
-@functools.lru_cache(maxsize=None)
 def device_array(maker: Callable[..., np.ndarray], args: tuple,
                  device: torch.device) -> torch.Tensor:
     """``maker(*args)`` (a host-side numpy constant) as a tensor on ``device``,
     uploaded once: a pageable host-to-device copy per call would wait for the
-    device's queue to drain."""
+    device's queue to drain. While ``torch.export`` (or the compiler) traces,
+    the constant is made anew and not cached: a tensor made under tracing
+    is the tracer's, and later eager calls must not read it."""
+    if torch.compiler.is_compiling():
+        return _upload(maker, args, device)
+    return _cached_upload(maker, args, device)
+
+
+def _upload(maker, args, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(maker(*args))).to(device)
+
+
+_cached_upload = functools.lru_cache(maxsize=None)(_upload)

@@ -278,6 +278,22 @@ shc_band.launches = 0
 shc_band.instantiation = None
 
 
+@torch.library.custom_op("satpu_torch::shc_band", mutates_args=(), device_types=("cpu", "cuda"))
+def shc_band_op(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
+                window_length: int) -> torch.Tensor:
+    """``shc_band`` as the registered op ``torch.ops.satpu_torch.shc_band``
+    (the kernel on a CUDA tensor, the plain version on a CPU one), which
+    ``get_f0`` calls: ``torch.export`` records the op where it cannot trace
+    the kernel's raw-pointer launch, and a program exported with it loads
+    wherever this module has been imported."""
+    return shc_band(mag, min_shc, n_out, n_harm, window_length)
+
+
+@shc_band_op.register_fake
+def _shc_band_fake(mag, min_shc, n_out, n_harm, window_length):
+    return mag.new_empty((mag.shape[0], n_out), dtype=torch.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _shc_instantiation(n_harm: int, window_length: int) -> str:
     return "fixed" if _shc_lib().satpu_shc_fixed(n_harm, window_length) else "generic"
@@ -337,7 +353,7 @@ def shc_all_frames(filtered_nl: torch.Tensor, n_frames: int, frame_size: int,
     """SHC spectra for every frame: [B, S] -> [B, n_frames, max_SHC]."""
     g = shc_params(nfft, p)
     mag = shc_magnitude(filtered_nl, n_frames, frame_size, frame_jump, nfft, p)
-    band = shc_band(mag, g["min_shc"], g["n_out"], g["n_harm"], g["window_length"])
+    band = shc_band_op(mag, g["min_shc"], g["n_out"], g["n_harm"], g["window_length"])
     shc = torch.zeros((mag.shape[0], g["max_shc"]), device=mag.device, dtype=torch.float32)
     shc[:, g["min_shc"] - 1:g["max_shc"]] = band
     return shc.reshape(filtered_nl.shape[0], n_frames, g["max_shc"])

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.torchlayers import Conv1d, Conv2d, Linear, autocast  # noqa: F401
+from ..parallel import mesh
 
 
 class BatchNorm(nn.Module):
@@ -54,9 +55,31 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.to(self.weight.dtype), self.running_mean, self.running_var,
-                            self.weight, self.bias, training=self.training,
-                            momentum=self.momentum, eps=self.eps)
+        x = x.to(self.weight.dtype)
+        if self.training and mesh.active():
+            return self._global_batch_norm(x)
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=self.training, momentum=self.momentum, eps=self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training under a process group (``parallel.mesh``): the moments
+        of the global batch (sums of x, x^2 and the count over the ranks,
+        differentiably); the running variance moves towards the unbiased
+        variance of the global count."""
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.ndim))
+        s = mesh.global_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                                       x.new_full((1,), x.numel() // C)]))
+        n = s[-1]
+        mean = s[:C] / n
+        var = torch.clamp(s[C:2 * C] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * n / (n - 1))
+        shape = (1, C) + (1,) * (x.ndim - 2)
+        return ((x - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
+                * self.weight.reshape(shape) + self.bias.reshape(shape))
 
 
 class SELayer(nn.Module):

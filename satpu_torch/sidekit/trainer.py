@@ -12,7 +12,11 @@ reference satools/satools/sidekit/{model,objf,monitor}.py).
   norm, SpecAugment masks from the caller's generator, satpu's bf16 policy
   over the frontend and the trunk with ``compute_dtype="bfloat16"``), the
   backward, the AdamW step. Its phases are ``torch.profiler.record_function``
-  ranges ``asv.<phase>`` (``PHASES``);
+  ranges ``asv.<phase>`` (``PHASES``). Under a process group
+  (``parallel.mesh``) each rank takes a contiguous block of the global
+  batch: batch norm and the SpecAugment draws are the global batch's, each
+  rank's loss is its share of the global mean, and the gradients are
+  summed over the ranks (``asv.sync``) before AdamW;
 - ``TrainingMonitor``: patience / best-EER tracking (monitor.py:10-252);
 - ``extract_xvectors``: per-utterance x-vectors on the model's device, full
   utterances one at a time or fixed windows in batches;
@@ -30,10 +34,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..parallel import mesh
 from . import scoring
 from .nn import autocast
 
-PHASES = ("frontend", "forward", "backward", "optimizer")
+PHASES = ("frontend", "forward", "backward", "sync", "optimizer")
 HEAD_PREFIX = "after_speaker_embedding."
 
 
@@ -83,14 +88,23 @@ class AsvTrainer:
         with record_function("asv.forward"), autocast(self.cast):
             x = model.embed(feats)
             loss, logits = model.after_speaker_embedding(x, target=target, m=self.arc_m)
+        accuracy = (logits.argmax(dim=-1) == target).float().mean()
+        n = mesh.world()
+        if mesh.active():
+            # this rank's (equal) block: its share of the global batch's mean
+            loss, accuracy = loss / n, accuracy / n
         with record_function("asv.backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        metrics = {"loss": loss.detach(), "accuracy": accuracy}
+        if mesh.active():
+            with record_function("asv.sync"):
+                mesh.sum_grads_(self.model.parameters())
+                metrics = mesh.sum_metrics(metrics)
         with record_function("asv.optimizer"):
             self.optimizer.step()
         self.step += 1
-        accuracy = (logits.argmax(dim=-1) == target).float().mean()
-        return {"loss": loss.detach(), "accuracy": accuracy}
+        return metrics
 
     def state_dict(self) -> Dict:
         """The optimizer's state and the step: the ``trainer_`` checkpoint."""

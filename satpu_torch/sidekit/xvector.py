@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..models.wavlm import WavLMConfig, WavLmFrontEnd
+from ..parallel import mesh
 from .archi import PreEcapaTDNN, PreHalfResNet34
 from .loss import ArcMarginProduct, normalize
 from .nn import BatchNorm, Linear
@@ -87,8 +88,11 @@ class _XVector(nn.Module):
         else:
             x = mel_spec_frontend(wav, n_mels=self.cfg.n_mels)
         if self.training and self.cfg.spec_augment:
+            # the global batch's masks under data parallelism, this rank's rows
             B, F, T = x.shape
-            x = apply_spec_masks(x, draw_spec_masks(B, T, F, generator))
+            r, n = mesh.rank(), mesh.world()
+            masks = draw_spec_masks(B * n, T, F, generator)
+            x = apply_spec_masks(x, [m[r * B:(r + 1) * B] for m in masks])
         return x
 
     @property

@@ -3,14 +3,15 @@
 
 wav.scp (including piped ``cmd |`` entries, and offset reads), two-column
 tables, utt2len / utt2dur (computed and written when missing), RIFF WAV
-decoding (PCM8/16/24/32, float32/64) and PCM16 encoding.
+decoding (PCM8/16/24/32, float32/64) and PCM16 encoding, and the subset /
+combine of whole data dirs (kaldi's subset_data_dir.sh / combine_data.sh).
 """
 from __future__ import annotations
 
 import os
 import struct
 import subprocess
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -174,3 +175,68 @@ def copy_data_dir(src: str, dest: str) -> None:
         if os.path.exists(p):
             with open(p) as fi, open(os.path.join(dest, name), "w") as fo:
                 fo.write(fi.read())
+
+
+def spk2utt_from_utt2spk(utt2spk: Dict[str, str]) -> Dict[str, List[str]]:
+    spk2utt: Dict[str, List[str]] = {}
+    for utt, spk in utt2spk.items():
+        spk2utt.setdefault(spk, []).append(utt)
+    return spk2utt
+
+
+def filter_scp(keep_keys, scp: Dict[str, str]) -> Dict[str, str]:
+    keep = set(keep_keys)
+    return {k: v for k, v in scp.items() if k in keep}
+
+
+_UTT_TABLES = ("wav.scp", "utt2spk", "text", "utt2dur", "utt2len")
+
+
+def subset_data_dir(src: str, utt_keep, dest: str) -> None:
+    """Kaldi ``utils/subset_data_dir.sh --utt-list``: keep only ``utt_keep``
+    rows of every per-utterance table, regenerate spk2gender/spk2utt for the
+    surviving speakers (reference egs/anon/vctk/local/data_prep_vpc.sh:36-62
+    builds the VPC enroll/trial subsets this way)."""
+    keep = set(utt_keep)
+    os.makedirs(dest, exist_ok=True)
+    spks = set()
+    for name in _UTT_TABLES:
+        p = os.path.join(src, name)
+        if not os.path.exists(p):
+            continue
+        table = filter_scp(keep, read_keyed_text(p))
+        write_keyed_text(table, os.path.join(dest, name))
+        if name == "utt2spk":
+            spks = set(table.values())
+            write_keyed_text(
+                {s: " ".join(us) for s, us in
+                 sorted(spk2utt_from_utt2spk(table).items())},
+                os.path.join(dest, "spk2utt"))
+    g = os.path.join(src, "spk2gender")
+    if os.path.exists(g) and spks:
+        write_keyed_text(filter_scp(spks, read_keyed_text(g)),
+                         os.path.join(dest, "spk2gender"))
+
+
+def combine_data_dirs(dest: str, srcs) -> None:
+    """Kaldi ``utils/combine_data.sh``: concatenate the per-utterance tables
+    of ``srcs`` (first occurrence wins on duplicate utts), regenerate
+    spk2utt/spk2gender."""
+    os.makedirs(dest, exist_ok=True)
+    for name in _UTT_TABLES + ("spk2gender",):
+        merged: Dict[str, str] = {}
+        found = False
+        for src in srcs:
+            p = os.path.join(src, name)
+            if os.path.exists(p):
+                found = True
+                for k, v in read_keyed_text(p).items():
+                    merged.setdefault(k, v)
+        if found:
+            write_keyed_text(dict(sorted(merged.items())),
+                             os.path.join(dest, name))
+        if name == "utt2spk" and found:
+            write_keyed_text(
+                {s: " ".join(us) for s, us in
+                 sorted(spk2utt_from_utt2spk(merged).items())},
+                os.path.join(dest, "spk2utt"))

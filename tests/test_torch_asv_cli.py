@@ -208,10 +208,14 @@ def test_other_options_run(runs, tmp_path):
 
 
 def test_world_size_raises(monkeypatch, tmp_path):
+    """Under a launcher's world of 2 a minibatch that 2 does not divide is
+    refused, as satpu refuses it, before any process group or file."""
     from satpu_torch.bin import train_asv
 
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="must be divisible by the device count 2"):
         train_asv.main(["--train-set", str(tmp_path), "--dirname", str(tmp_path / "exp"),
-                        "--device", "cpu"])
+                        "--device", "cpu", "--minibatch-size", "9"])
     assert not (tmp_path / "exp").exists()
+    assert not torch.distributed.is_initialized()

@@ -176,14 +176,20 @@ def test_eval_anon_cli_on_cpu(fx, tmp_path, rescore_mode, xvector_mode, cohort_d
 
 
 def test_eval_anon_refuses_serve_mesh(tmp_path, monkeypatch):
-    """Sharding over several cards is not ported: refused when there are."""
+    """Over several cards a batch size their count does not divide is
+    refused, as satpu refuses it (satpu/bin/eval_anon.py:107-111), before
+    any output; the serving mesh's devices are every local card."""
     from satpu_torch.bin import eval_anon
+    from satpu_torch.parallel.mesh import serve_devices
 
     monkeypatch.setattr(eval_anon, "resolve_device", lambda d: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        eval_anon.main(["--serve-mesh", "true", "--results", str(tmp_path / "r")])
+    with pytest.raises(ValueError, match="divisible by the device count \\(2\\)"):
+        eval_anon.main(["--serve-mesh", "true", "--batch-size", "3",
+                        "--results", str(tmp_path / "r")])
     assert not (tmp_path / "r").exists()
+    assert serve_devices("cuda") == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert serve_devices("cpu") == [torch.device("cpu")]
 
 
 def test_eval_anon_serve_mesh_on_one_device_runs_unsharded(tmp_path):
@@ -237,3 +243,36 @@ def test_eval_anon_with_a_wav2vec2_asr_model(fx, tmp_path):
         n = output_num_frames(len(w))
         assert lls[utt].shape == (n, ref.shape[2])
         assert rel_err(lls[utt], np.asarray(ref)[j, :n]) <= 1e-4
+
+
+def test_eval_anon_serve_mesh_splits_loglike_batches(fx, tmp_path):
+    """The serving mesh over two CPU "devices": each batch of 2 split into
+    blocks of 1 (the tail batch's one row on the first device alone); the
+    dumped loglikes within 1e-6 of the unsharded run's and satpu's network
+    on the same padded batch at rel 1e-4."""
+    from satpu.utils.scp_io import read_ark
+    from satpu_torch.bin import eval_anon
+    from satpu_torch.models.asrbn import output_num_frames
+
+    lls = {}
+    for name, devices in (("one", None), ("mesh", ["cpu", "cpu"])):
+        ark = tmp_path / f"{name}.ark"
+        opts = eval_anon.EvalOpts().load_from_args([
+            "--device", "cpu", "--data", fx["data"], "--asr-checkpoint", fx["asr"],
+            "--decode-graph", fx["graph"], "--words-txt", fx["words"], "--nbest", str(NBEST),
+            "--lattice-beam", str(LATTICE_BEAM), "--batch-size", "2", "--dump-loglikes",
+            str(ark), "--results", str(tmp_path / name)])
+        os.makedirs(opts.results)
+        res = eval_anon.evaluate_asr(opts, devices)
+        assert res["words"] == 7
+        lls[name] = dict(read_ark(str(ark)))
+    assert sorted(lls["mesh"]) == sorted(TEXTS)
+    wav = np.zeros((len(TEXTS), 16000), np.float32)
+    for j, w in enumerate(fx["wavs"].values()):
+        wav[j, :len(w)] = w
+    lens = np.array([len(w) for w in fx["wavs"].values()], np.int32)
+    ref, _ = satpu_apply(fx["jnet"], fx["jvars"], wav, train=False, lengths=lens)
+    for j, (utt, w) in enumerate(fx["wavs"].items()):
+        got = lls["mesh"][utt]
+        assert np.abs(got - lls["one"][utt]).max() <= 1e-6
+        assert rel_err(got, np.asarray(ref)[j, :output_num_frames(len(w))]) <= 1e-4

@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "satpu")
 COPIED = ("utils/kaldi_data.py", "utils/config.py", "utils/wer.py", "utils/scp_io.py",
           "utils/feature_cache.py", "utils/schedules.py", "chain/fst.py", "chain/lattice.py",
           "chain/decoder.py", "chain/hmm.py", "chain/prep.py", "bin/prepare_data.py",
-          "sidekit/scoring.py", "sidekit/dataset.py", "hifigan/dataset.py", "utils/jobs.py")
+          "sidekit/scoring.py", "sidekit/dataset.py", "hifigan/dataset.py", "utils/jobs.py",
+          "bin/preprocess_audio.py", "bin/prepare_vctk.py", "bin/prepare_aug.py")
 
 
 def _port_files():
@@ -63,7 +64,11 @@ def test_cli_import_leaves_jax_unloaded():
             "satpu_torch.models.wav2vec2, satpu_torch.models.spkadv, "
             "satpu_torch.models.torchlayers, satpu_torch.models.wavlm, satpu_torch.hub, "
             "satpu_torch.bin.import_model, satpu_torch.utils.flax_msgpack, "
-            "satpu_torch.utils.jobs\n"
+            "satpu_torch.utils.jobs, satpu_torch.parallel, satpu_torch.parallel.mesh, "
+            "satpu_torch.parallel.multihost, satpu_torch.bin.export_model, "
+            "satpu_torch.bin.diff_checkpoints, satpu_torch.bin.parity, "
+            "satpu_torch.bin.preprocess_audio, satpu_torch.bin.prepare_vctk, "
+            "satpu_torch.bin.prepare_aug, satpu_torch.utils.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'satpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

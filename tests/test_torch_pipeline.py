@@ -82,16 +82,21 @@ def test_cli_defaults_to_cuda(setup, monkeypatch, capsys):
     assert main(["--directory", data]) == 2  # no checkpoint
 
 
-@pytest.mark.parametrize("flag", [("--serve-mesh", "true", "item 15")], ids=["serve_mesh"])
-def test_unported_serving_flags_raise(setup, flag):
-    """satpu shards batches over cards on this flag; the port refuses it
-    instead of running on one card."""
+@pytest.mark.parametrize("flag", [("--serve-mesh", "true", "device count \\(2\\)")],
+                         ids=["serve_mesh"])
+def test_unported_serving_flags_raise(setup, flag, monkeypatch):
+    """satpu splits each batch over the cards on this flag and refuses a
+    batch size their count does not divide (satpu/bin/pipeline.py:156-159);
+    so does the port (two cards faked here), before any output."""
+    import satpu_torch
     from satpu_torch.bin.anonymize import AnonymizeOpts, main
 
     _, ckpt, data, _ = setup
-    name, value, item = flag
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(["--checkpoint", ckpt, "--directory", data, "--device", "cpu", name, value,
+    name, value, match = flag
+    monkeypatch.setattr(satpu_torch, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=match):
+        main(["--checkpoint", ckpt, "--directory", data, name, value, "--batch-size", "3",
               "--new-datadir-suffix", "_refused"])
     assert not os.path.exists(data + "_refused")
     # one process on one device: the defaults run

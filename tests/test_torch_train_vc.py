@@ -208,11 +208,36 @@ def test_tf32_is_off_while_training_and_restored(vc_data, small_discriminators, 
 
 
 def test_multi_process_is_refused(vc_data, monkeypatch):
+    """Under a launcher's world of 2 a minibatch that 2 does not divide is
+    refused, as satpu refuses it, before any process group or file; the
+    steps an epoch are the fewest any rank's host-local batches give."""
     from satpu_torch.bin import train_vc
+    from satpu_torch.hifigan.dataset import HifiGanDataset
 
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        train_vc.main(_args(vc_data, str(vc_data["root"] / "exp_ddp")))
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    exp = vc_data["root"] / "exp_ddp"
+    with pytest.raises(ValueError, match="must be divisible by the device count 2"):
+        train_vc.main(_args(vc_data, str(exp))[:-2] + ["--minibatch-size", "3"])
+    assert not exp.exists() and not torch.distributed.is_initialized()
+    class Items:  # a set of n items, for the batch count
+        speakers = ["s"]
+
+        def __init__(self, n):
+            self.n = n
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, j):
+            return np.zeros(2), np.zeros((1, 2)), np.zeros(2), 0
+
+    for n_items in (9, 8, 3, 1):
+        for world, bs in ((1, 2), (2, 1), (2, 2), (3, 1)):
+            want = min(len(list(HifiGanDataset.batches(Items(n_items), bs, process_index=k,
+                                                       process_count=world)))
+                       for k in range(world))
+            assert train_vc.steps_per_epoch(n_items, bs, world) == want, (n_items, world, bs)
 
 
 def test_checkpoint_gc_matches_satpu(tmp_path):
