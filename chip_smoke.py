@@ -51,17 +51,20 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     16 / lattice beam 8, one thread and a thread pool;
 13. gan: the ``train_vc`` CLI on the card at full width
     (egs/vc/libritts/configs/hifigan.ini: generator 512 over the flagship's
-    247 speakers, full MPD and MSD, B=32, segment 16320, f32) for one epoch
+    247 speakers, full MPD and MSD, B=32, segment 16320, f32; cuDNN's
+    deterministic conv algorithms, the CLI's default) for one epoch
     over 247 synthetic voiced utterances (1.1-1.6 s, one a speaker) with a
     dev dir of 32, the frozen flagship extractor's F0 through the SHC
     kernel; checks every step's metrics, that the warm-up launched the
     kernel, the checkpoint triplet, g_best and the validation error, and
     that the ``anonymize`` CLI serves the written generator;
 14. gan-cpu: one tiny GAN step on the card against the port's CPU path;
-15. gan-throughput: full-width GAN steps from a fixed batch, B=32 f32 and
-    B=128 bf16 at segment 16320: ms per step, audio-seconds per second,
-    peak memory, then a profile of as many steps: the step's phases (the
-    trainer's profiler ranges), the busy share and the top device items;
+15. gan-throughput: the ops of a GAN step that torch calls
+    nondeterministic; full-width GAN steps from a fixed batch, B=32 f32 and
+    B=128 bf16 at segment 16320: ms per step with cuDNN's default and its
+    deterministic conv algorithms, audio-seconds per second, peak memory,
+    then a profile of as many steps: the step's phases (the trainer's
+    profiler ranges), the busy share and the top device items;
 16. asv: the ``train_asv`` CLI on the card with
     egs/asv/voxceleb/configs/ecapa.ini's widths and batch (ECAPA 512, B=1024
     = 16 speakers x 64, 3 s, f32, SpecAugment, batch statistics) for 2
@@ -121,10 +124,12 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 27. dp-train: data parallelism on the one card. The ``train_asr``,
     ``train_asv`` and ``train_vc`` CLIs under ``torch.distributed.run
     --nproc-per-node 1`` (NCCL) with the arguments of phases 8, 16 and 13,
-    their logged losses against those runs'; each trainer's step (TDNN-F
-    B=16, ECAPA-512 B=128 over 5994 speakers, the GAN at B=32) from seed 0
-    without and with a one-rank NCCL group: ms per step, the sync ranges'
-    split, the first losses; then two gloo ranks on cuda:0 (CUDA tensors),
+    their logged losses against those runs' (rel 1e-3), and ``train_vc``
+    again without a group: its logged values and g_best.ckpt bitwise phase
+    13's; each trainer's step (TDNN-F B=16, ECAPA-512 B=128 over 5994
+    speakers, the GAN at B=32) from seed 0 without and with a one-rank
+    NCCL group: ms per step, the sync ranges' split, the first losses;
+    then two gloo ranks on cuda:0 (CUDA tensors),
     each on half of every global batch, against one rank on the global
     batches for 2 steps of each trainer (the networks in f64, the GAN at
     B=8): losses rel 1e-5, the states rel 1e-4 in relative L2, rank 1
@@ -138,7 +143,16 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     10 s, loaded with ``torch.export.load`` in a fresh process that imports
     only the SHC op's registration and run there: export and load times,
     K1's launches inside the program, its departure from eager, and
-    audio-seconds per second exported and eager.
+    audio-seconds per second exported and eager;
+30. surface: fault 4 (ECAPA's batch norm in training at |mean|/std = 1e4
+    without a group, in one-rank NCCL and gloo groups and two gloo ranks on
+    cuda:0, against f64) and the ECAPA-512 B=128 step's cost of the
+    two-pass moments; the eval phase's judge under the reference sidekit's
+    names through ``convert_sidekit`` and ``eval_anon`` (x-vectors
+    bitwise, the same results and ranking); ``global_cmvn``, ``CMVN`` and
+    ``AdaptivePCMN`` card vs CPU; the flagship generator with
+    ``bf16_min_channels=128`` served at B=32 x 10 s beside uniform bf16;
+    ``hub.load(..., load_weight=False)`` on the card.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
@@ -1596,14 +1610,38 @@ def phase_gan_throughput(np, torch, card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from satpu_torch import infer_helper
+    import warnings
+
+    from satpu_torch import deterministic_convs, infer_helper
     from satpu_torch.hifigan.trainer import PHASES, GanHparams, GanTrainer
 
-    for dtype, B, iters in (("float32", 32, 3), ("bfloat16", 128, 2)):
+    def trainer_for(dtype, B):
         model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
                                          compute_dtype=dtype, **FLAGSHIP)
         trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT, compute_dtype=dtype))
-        batch = gan_batch(np, torch, B, "cuda")
+        return model, trainer, gan_batch(np, torch, B, "cuda")
+
+    # the ops of a GAN step that PyTorch calls nondeterministic (under
+    # deterministic_convs, train_vc's default)
+    kinds = set()
+    for dtype in ("float32", "bfloat16"):
+        model, trainer, batch = trainer_for(dtype, 4)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with deterministic_convs(), warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        kinds |= {str(w.message).split(" does not have")[0].split("\n")[0][:100]
+                  for w in caught if "determinis" in str(w.message)}
+        del model, trainer, batch
+    print(f"[gan-throughput] ops of a GAN step (f32 and bf16) that torch calls"
+          f" nondeterministic: {sorted(kinds) or 'none'}")
+
+    for dtype, B, iters in (("float32", 32, 3), ("bfloat16", 128, 2)):
+        model, trainer, batch = trainer_for(dtype, B)
         for _ in range(2):  # warm-up: cuDNN's algorithm search, the optimizers' state
             trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -1613,6 +1651,15 @@ def phase_gan_throughput(np, torch, card):
             metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / iters
+        # the same steps under train_vc's default deterministic conv algorithms
+        with deterministic_convs():
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            det_wall = (time.perf_counter() - t0) / iters
         check(all(bool(torch.isfinite(torch.as_tensor(v))) for v in metrics.values()),
               f"GAN metrics not finite at B={B} {dtype}")
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1628,7 +1675,8 @@ def phase_gan_throughput(np, torch, card):
         audio = B * GAN_SEGMENT / SR
         print(f"[gan-throughput] B={B} x {GAN_SEGMENT} samples, {dtype}, generator 512 + MPD +"
               f" MSD: {wall * 1e3:.1f} ms/step (host clock), {audio / wall:.1f} audio-s/s; peak"
-              f" mem {peak:.2f} GiB [{card}]")
+              f" mem {peak:.2f} GiB; with cuDNN's deterministic algorithms (train_vc's"
+              f" default) {det_wall * 1e3:.1f} ms/step, {det_wall / wall - 1:+.1%} [{card}]")
         print(f"[gan-throughput]   profiled split ms/step, host / device: "
               + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
               + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
@@ -2852,6 +2900,28 @@ def phase_dp_train(np, torch, card, fx):
     # the three side by side (peaks of ~2, 29 and 37 GiB)
     with ThreadPoolExecutor(3) as pool:
         walls = dict(zip(clis, pool.map(torchrun, clis)))
+    # train_vc again without a group, alone on the card: with less memory
+    # free, cuDNN takes deterministic algorithms of smaller workspaces, whose
+    # sums round otherwise
+    args, _, _ = clis["train_vc"]
+    t0 = time.perf_counter()
+    run_child([sys.executable, "-m", "satpu_torch.bin.train_vc", *args, "--dirname",
+               os.path.join(gan, "exp_repeat")], 600, "train_vc's repeat", child_env())
+    t_repeat = time.perf_counter() - t0
+    logged = {}
+    for d in ("exp", "exp_repeat"):
+        with open(os.path.join(gan, d, "metrics.jsonl")) as f:
+            logged[d] = [{k: v for k, v in json.loads(x).items() if k != "t"} for x in f]
+    ckpts = [infer_helper.read_checkpoint(os.path.join(gan, d, "g_best.ckpt"))[1]
+             for d in ("exp", "exp_repeat")]
+    same = sorted(ckpts[0]) == sorted(ckpts[1]) and all(
+        torch.equal(v, ckpts[1][k]) for k, v in ckpts[0].items())
+    print(f"[dp-train] train_vc without a group, again ({t_repeat:.1f} s with the process"
+          f" start): logged {[r.get('val_mel_error') for r in logged['exp_repeat']]} vs phase"
+          f" 13's {[r.get('val_mel_error') for r in logged['exp']]}; the same logged values"
+          f" {logged['exp_repeat'] == logged['exp']}, g_best.ckpt bitwise {same}")
+    check(logged["exp_repeat"] == logged["exp"] and same,
+          "train_vc does not repeat bit for bit without a group")
     for name, (args, root, keys) in clis.items():
         wall = walls[name]
         logged = []
@@ -2868,11 +2938,7 @@ def phase_dp_train(np, torch, card, fx):
         print(f"[dp-train] torchrun --nproc-per-node 1 (NCCL) {name}: {len(got)} logged"
               f" {'/'.join(keys)} values within rel {worst:.3e} of the no-group run's"
               f" ({wall:.1f} s with the process start; the three CLIs side by side)")
-        # the GAN's 8 steps from a random init spread with cuDNN's
-        # nondeterministic conv backward (Adam turns entries under rounding
-        # into full updates): its steps are held one by one below
-        check(worst <= 1e-3 or name == "train_vc",
-              f"{name}: the one-rank NCCL run departs by {worst:.3e}")
+        check(worst <= 1e-3, f"{name}: the one-rank NCCL run departs by {worst:.3e}")
 
     # (a) each trainer's step in this process, without and with a one-rank NCCL group
     fx_den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
@@ -3144,11 +3210,319 @@ def phase_export(np, torch, card, ckpt):
     return res["launches"]
 
 
+# ---- the rest of satpu's surface: fault 4, a reference judge, the new modules ---
+
+
+def bn_fault_input(np):
+    """ECAPA batch norm's fault-4 input: |mean| / std = 1e4, [B, C, T] f32."""
+    return (1000.0 + 0.1 * np.random.default_rng(0).standard_normal((64, 16, 200))).astype(
+        np.float32)
+
+
+def bn_train(torch, x, device):
+    """``sidekit.nn.BatchNorm`` in training on ``x`` (in ``x``'s dtype) on
+    ``device``, under whatever process group is up: (output, running mean,
+    running variance) on the host."""
+    from satpu_torch.sidekit.nn import BatchNorm
+
+    bn = BatchNorm(x.shape[1]).to(device, x.dtype).train()
+    with torch.no_grad():
+        y = bn(x.to(device))
+    return y.cpu(), bn.running_mean.cpu(), bn.running_var.cpu()
+
+
+def bn_worker(rank: int, world: int, port: int, result: str) -> int:
+    """One gloo rank of the surface phase's batch-norm check on cuda:0
+    (``--bn-worker``): its block of the fault-4 input."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from satpu_torch.parallel.mesh import local_batch_slice
+
+    torch.cuda.set_device(0)
+    x = torch.from_numpy(bn_fault_input(np))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        torch.save(bn_train(torch, x[local_batch_slice(len(x), rank, world)], "cuda"), result)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def one_pass_batch_norm(self, x):
+    """The global moments in one collective (the sums of x and x^2 in f32,
+    the variance E[x^2] - E[x]^2) that the two-pass form replaced: timed
+    beside it, never used to train."""
+    import torch
+
+    from satpu_torch.parallel import mesh
+
+    C = x.shape[1]
+    dims = [0] + list(range(2, x.ndim))
+    s = mesh.global_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                                   x.new_full((1,), x.numel() // C)]))
+    n = s[-1]
+    mean = s[:C] / n
+    var = (s[C:2 * C] / n - mean * mean).clamp(min=0.0)
+    shape = (1, C) + (1,) * (x.ndim - 2)
+    return ((x - mean.reshape(shape)) * (var + self.eps).rsqrt().reshape(shape)
+            * self.weight.reshape(shape) + self.bias.reshape(shape))
+
+
+def reference_sidekit_name(key: str) -> str:
+    """A port ECAPA x-vector key -> the reference sidekit's (what
+    ``convert_sidekit`` reads): the ``before_speaker_embedding`` Sequential
+    and ECAPA's ``layer<k>.<i>`` (the port's ``layer<k>.block.<i>``)."""
+    key = re.sub(r"\bbefore_speaker_embedding_([a-z0-9_]+?)\.", r"before_speaker_embedding.\1.",
+                 key)
+    return re.sub(r"\b(layer[234])\.block\.(\d+)\.", r"\1.\2.", key)
+
+
+def phase_surface(np, torch, card, paths, ckpt):
+    """(a) fault 4: ECAPA's batch norm in training on 1000 + 0.1 randn
+    [64, 16, 200] f32 without a group, in a one-rank NCCL group, a one-rank
+    gloo group and two gloo ranks on cuda:0, each against f64: the output
+    within 1e-3 of its largest entry and within 4x the no-group error, the
+    running statistics rel 1e-5; the ECAPA-512 B=128 step (5994 speakers)
+    without a group and in a one-rank NCCL group with the two-pass moments
+    and with the one-pass form they replaced, in turns. (b) a judge the
+    reference trained: the eval phase's ECAPA-512 under the reference
+    sidekit's names through ``convert_sidekit`` into a checkpoint, and the
+    ``eval_anon`` CLI with it over the slice's anonymized dir: its
+    x-vectors bitwise the original judge's, the same results and trial
+    ranking. (c) the new modules on the card against the CPU: global_cmvn
+    and CMVN rel 1e-6, AdaptivePCMN at D=80, T=1000, B=32 rel 1e-5; the
+    flagship generator with bf16_min_channels=128 serving B=32 x 10 s
+    (finite; audio-seconds per second of convert beside the uniform bf16
+    generator's, in turns); ``hub.load(..., load_weight=False)`` on the
+    card."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from satpu_torch import hub, infer_helper
+    from satpu_torch.bin import eval_anon
+    from satpu_torch.models.convert import convert_sidekit
+    from satpu_torch.models.hifigan import CoreHifiGan
+    from satpu_torch.ops.cmvn import CMVN, AdaptivePCMN, global_cmvn
+    from satpu_torch.sidekit import nn as sk_nn
+    from satpu_torch.sidekit.trainer import AsvTrainer, extract_xvectors, make_asv_optimizer
+    from satpu_torch.utils import kaldi_data
+
+    # (a) fault 4
+    x = torch.from_numpy(bn_fault_input(np))
+    want = bn_train(torch, x.double(), "cuda")
+    port = free_port()
+    results = [os.path.join(WORK, f"bn_rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--bn-worker", str(r),
+                               "2", str(port), results[r]], cwd=ROOT, env=child_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    got = {"no group": bn_train(torch, x, "cuda")}
+    for backend in ("nccl", "gloo"):
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            got[f"one-rank {backend} group"] = bn_train(torch, x, "cuda")
+        finally:
+            dist.destroy_process_group()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"bn rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    ranks = [torch.load(r) for r in results]
+    check(all(torch.equal(a, b) for a, b in zip(ranks[0][1:], ranks[1][1:])),
+          "the two ranks' running statistics differ")
+    got["two gloo ranks"] = (torch.cat([ranks[0][0], ranks[1][0]]),) + ranks[0][1:]
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    errs = {k: [rel(a, b) for a, b in zip(v, want)] for k, v in got.items()}
+    print("[surface] fault 4: ECAPA's batch norm in training on 1000 + 0.1 randn [64, 16, 200]"
+          " f32 against f64, output / running mean / running var rel: " + "; ".join(
+              f"{k} {e[0]:.3e} / {e[1]:.3e} / {e[2]:.3e}" for k, e in errs.items()) + f" [{card}]")
+    base = errs["no group"][0]
+    for k, e in errs.items():
+        check(e[0] <= 1e-3 and e[0] <= 4 * base and max(e[1:]) <= 1e-5,
+              f"fault 4: {k}: output rel {e[0]:.3e} (no group {base:.3e}), stats {e[1:]}")
+
+    rng = np.random.default_rng(3)
+    asv_batch = (torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(
+        np.float32)).cuda(), torch.from_numpy(rng.integers(0, ASV_HEAD, 128)).cuda())
+
+    def asv_step_ms(iters=3):
+        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                         num_speakers=ASV_HEAD)
+        trainer = AsvTrainer(model, make_asv_optimizer(model))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(2):
+            trainer.train_step(*asv_batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            trainer.train_step(*asv_batch, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    two_pass = sk_nn.BatchNorm._global_batch_norm
+    steps = {"no group": [asv_step_ms()], "two-pass": [], "one-pass": []}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for form in ("two-pass", "one-pass", "one-pass", "two-pass"):
+            sk_nn.BatchNorm._global_batch_norm = (two_pass if form == "two-pass"
+                                                  else one_pass_batch_norm)
+            steps[form].append(asv_step_ms())
+    finally:
+        sk_nn.BatchNorm._global_batch_norm = two_pass
+        dist.destroy_process_group()
+    print("[surface] ECAPA-512 B=128 x 3 s train step, f32, 5994 speakers, ms/step (host"
+          " clock): " + "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in v)}"
+                                  for k, v in steps.items())
+          + " (one-rank NCCL group for the two forms) [" + card + "]")
+    torch.cuda.empty_cache()
+
+    # (b) the eval phase's judge as the reference would have trained it
+    meta, sd = infer_helper.read_checkpoint(paths["asv"])
+    ref_sd = {reference_sidekit_name(k): v for k, v in sd.items()}
+    ref_sd.update({k[:-len("running_var")] + "num_batches_tracked": torch.tensor(100)
+                   for k in list(ref_sd) if k.endswith("running_var")})
+    ref_path = os.path.join(WORK, "eval", "reference_judge.pt")
+    torch.save(ref_sd, ref_path)
+    converted = convert_sidekit(torch.load(ref_path), arch="ecapa")
+    judge = os.path.join(WORK, "eval", "asv_imported.pt")
+    infer_helper.save_model(judge, meta["model_id"], meta["build_params"], converted)
+    data, anon = os.path.join(WORK, "data"), os.path.join(WORK, "data_anon")
+    asv_out = {}
+    for name, path in (("original", paths["asv"]), ("imported", judge)):
+        res = os.path.join(WORK, "eval", f"results_{name}_judge")
+        rc = eval_anon.main(["--device", "cuda", "--data", anon, "--asv-checkpoint", path,
+                             "--enroll-dir", data, "--trials", paths["trials"],
+                             "--xvector-mode", "chunked", "--results", res])
+        check(rc == 0, f"eval_anon with the {name} judge exited {rc}")
+        with open(os.path.join(res, "results.json")) as f:
+            asv_out[name] = json.load(f)["asv"]
+    utt2spk = kaldi_data.read_keyed_text(os.path.join(data, "utt2spk"))
+    enroll = sorted(utt2spk)
+    anon_utts = sorted(kaldi_data.read_wav_scp(os.path.join(anon, "wav.scp")))
+    scp = {d: kaldi_data.read_wav_scp(os.path.join(d, "wav.scp")) for d in (data, anon)}
+    wavs = ([kaldi_data.load_wav_from_scp(scp[data][u])[0][0] for u in enroll]
+            + [kaldi_data.load_wav_from_scp(scp[anon][u])[0][0] for u in anon_utts])
+    with open(paths["trials"]) as f:
+        trials = [(s, u, t == "target") for s, u, t in (line.split() for line in f)]
+    xv, ranking = {}, {}
+    for name, path in (("original", paths["asv"]), ("imported", judge)):
+        model, _ = infer_helper.load_model(path, device="cuda")
+        xv[name] = extract_xvectors(model, wavs)
+        ranking[name] = np.argsort(rank_scores(
+            np, xv[name][:len(enroll)], [utt2spk[u] for u in enroll],
+            dict(zip(anon_utts, xv[name][len(enroll):])), trials), kind="stable")
+        del model
+    same_xv = bool(np.array_equal(xv["original"], xv["imported"]))
+    same_rank = bool((ranking["original"] == ranking["imported"]).all())
+    print(f"[surface] the eval judge (ECAPA-512) under the reference's names ({len(ref_sd)}"
+          f" tensors) -> convert_sidekit -> eval_anon on cuda over {len(anon_utts)} anonymized"
+          f" utterances: x-vectors bitwise the original's {same_xv} ({len(wavs)} utterances),"
+          f" trial ranking equal {same_rank}, EER {asv_out['imported']['eer']:.4f} vs"
+          f" {asv_out['original']['eer']:.4f}, results equal {asv_out['imported'] == asv_out['original']}"
+          f" [{card}]")
+    check(sorted(converted) == sorted(sd) and same_xv and same_rank
+          and asv_out["imported"] == asv_out["original"],
+          "the judge imported through convert_sidekit departs from the original")
+
+    # (c) the new modules, card against CPU
+    g = np.random.default_rng(8)
+    feats = torch.from_numpy((g.standard_normal((32, 1000, 80)) * 2 + 3).astype(np.float32))
+    spk_feats = {s: g.standard_normal((300, 80)) * (1 + i) + 2 for i, s in enumerate("ABC")}
+    stats = {s: np.stack([np.append(f.sum(0), len(f)), np.append((f ** 2).sum(0), 0.0)])
+             for s, f in spk_feats.items()}
+    errs = {}
+    for var_norm in (False, True):
+        a, b = (global_cmvn(feats.to(d), stats["A"], var_norm=var_norm).cpu()
+                for d in ("cuda", "cpu"))
+        errs[f"global_cmvn var_norm={var_norm}"] = rel(a, b.double())
+    for reverse in (False, True):
+        cm = CMVN(stats, norm_vars=True, utt2spk={"u1": "B"}, reverse=reverse)
+        for utt in ("u1", "generic-spk"):
+            a, b = cm(feats.cuda(), utt).cpu(), cm(feats, utt)
+            errs[f"CMVN reverse={reverse} {utt}"] = rel(a, b.double())
+    pcmn = AdaptivePCMN(80)
+    pcmn.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pcmn.bias.normal_(0.0, 0.01, generator=torch.Generator().manual_seed(1))
+        b = pcmn(feats)
+        a = pcmn.cuda()(feats.cuda()).cpu()
+    pcmn_err = rel(a, b.double())
+    print("[surface] card vs CPU, f32 (TF32 off), [32, 1000, 80]: " + ", ".join(
+        f"{k} rel {v:.3e}" for k, v in errs.items()) + f"; AdaptivePCMN(80, -10, 10) rel"
+          f" {pcmn_err:.3e} [{card}]")
+    check(max(errs.values()) <= 1e-6 and pcmn_err <= 1e-5, "CMVN / AdaptivePCMN card vs CPU")
+
+    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args(),
+                                       device="cuda")
+    model.eval()
+    uniform = model.hifigan
+    narrow = CoreHifiGan(dc.replace(uniform.cfg, bf16_min_channels=128)).cuda().eval()
+    narrow.load_state_dict(uniform.state_dict())
+    B, T = 32, 10 * SR
+    wav = torch.from_numpy(np.stack([voiced_utterance(np, 10.0, 90.0 + 5 * k, seed=900 + k)[0]
+                                     for k in range(B)])).cuda()
+    tid = torch.arange(B, device="cuda") % len(SPEAKERS)
+    ms = {"uniform bf16": [], "bf16_min_channels=128": []}
+    outs = {}
+    with torch.inference_mode():
+        f0 = model.get_f0(wav)
+        for name in ("uniform bf16", "bf16_min_channels=128", "bf16_min_channels=128",
+                     "uniform bf16"):
+            model.hifigan = uniform if name == "uniform bf16" else narrow
+            outs[name] = model.convert(wav, f0, tid)
+            ms[name].append(cuda_ms(torch, lambda: model.convert(wav, f0, tid), iters=3,
+                                    warmup=1))
+    model.hifigan = uniform
+    a, b = outs["bf16_min_channels=128"].float(), outs["uniform bf16"].float()
+    print(f"[surface] flagship convert (bf16 serving) at B={B} x 10 s, F0 computed once:"
+          f" audio-s/s " + "; ".join(f"{k} {', '.join(f'{B * 10 / t * 1e3:.1f}' for t in v)}"
+                                     for k, v in ms.items())
+          + f" (in turns); bf16_min_channels=128 finite {bool(torch.isfinite(a).all())}, rel to"
+          f" uniform {float((a - b).abs().max() / b.abs().max()):.3e} [{card}]")
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          "bf16_min_channels=128 output not finite")
+    del model, uniform, narrow, wav, f0, outs, a, b
+    torch.cuda.empty_cache()
+
+    # the gan phase's trained generator: its weights are not build_model's init
+    trained = os.path.join(WORK, "gan", "exp", "g_best.ckpt")
+    t0 = time.perf_counter()
+    built, meta = hub.load(trained, device="cuda", load_weight=False)
+    t_build = time.perf_counter() - t0
+    loaded, _ = hub.load(trained, device="cuda")
+    loaded_sd = loaded.state_dict()
+    differ = sum(not torch.equal(v, loaded_sd[k]) for k, v in built.state_dict().items())
+    print(f"[surface] hub.load(train_vc's g_best.ckpt, load_weight=False) on cuda in"
+          f" {t_build:.1f} s: {meta['model_id']}, the loaded model's config"
+          f" {built.cfg == loaded.cfg}, {differ} of {len(loaded_sd)} tensors at build_model's"
+          f" init, not the file's")
+    check(next(built.parameters()).device.type == "cuda" and built.cfg == loaded.cfg
+          and differ > 0, "hub.load(load_weight=False) built another model, or the file's")
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--dp-worker"]:  # a rank of the dp-train phase
         return dp_worker(*(int(a) for a in sys.argv[2:5]), *sys.argv[5:7])
+    if sys.argv[1:2] == ["--bn-worker"]:  # a rank of the surface phase's batch-norm check
+        return bn_worker(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -3243,6 +3617,9 @@ def main() -> int:
     lap("serve-mesh")
     export_launches = phase_export(np, torch, card, ckpt)
     lap("export")
+    # the rest of satpu's surface (no kernel of its own)
+    phase_surface(np, torch, card, paths, ckpt)
+    lap("surface")
     print(f"[kernels] shc_band launches of the scale-out paths: serve-mesh {mesh_launches},"
           f" the exported program {export_launches} (in the kernels line)")
     launches["shc_band"] += mesh_launches + export_launches

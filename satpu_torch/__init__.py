@@ -74,6 +74,23 @@ def f32_matmuls():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def deterministic_convs(enabled: bool = True):
+    """cuDNN picks deterministic conv algorithms (no autotuning) while the
+    block runs, so that a training run repeats bit for bit on the card: the
+    default backward algorithms sum with atomics in a varying order, and
+    Adam's sign-like first steps turn those roundings into full updates.
+    ``enabled=False`` leaves the flags alone. The previous flags are
+    restored on exit."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    if enabled:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises if it names CUDA and none exists."""
     dev = torch.device(device)

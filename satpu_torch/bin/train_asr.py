@@ -93,6 +93,7 @@ class TrainAsrOpts(cfg.Opts):
     checkpoint_interval: int = 100
     diagnostics_interval: int = 50
     final_combination_n: int = 5
+    train_stage: str = "0"  # accepted and ignored, as satpu does
     init_weight_model: str = ""
     compute_dtype: str = "float32"
     augmentation: str = ""

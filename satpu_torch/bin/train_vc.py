@@ -14,8 +14,10 @@ serves: the trained generator with the frozen extractor), ``d_<steps>.ckpt``
 ``trainer_<steps>.ckpt`` (the optimizers), a ``g_best.ckpt`` symlink, and a
 sliding GC. A rerun resumes from the last triplet.
 
-Runs on ``--device`` (CUDA unless ``--device cpu``) with TF32 off (the
-flags are restored on return). Under ``torchrun --nproc-per-node N`` it
+Runs on ``--device`` (CUDA unless ``--device cpu``) with TF32 off and,
+unless ``--deterministic false``, cuDNN's deterministic conv algorithms
+(``deterministic_convs``: two runs give the same bits); the flags are
+restored on return. Under ``torchrun --nproc-per-node N`` it
 trains data-parallel as satpu's multi-host step does: rank r drives
 ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``), takes the
 host-local batches of ``minibatch_size / N`` (``HifiGanDataset.batches``
@@ -73,6 +75,9 @@ class TrainVcOpts(cfg.Opts):
     upsample_initial_channel: int = 512
     bn_dim: int = 256
     device: str = "cuda"
+    # cuDNN's deterministic conv algorithms: a run repeats bit for bit, at
+    # +47.0% a B=32 f32 step and +76.5% a B=128 bf16 one (PERF.md §5)
+    deterministic: bool = True
 
 
 def _ints(s: str):
@@ -91,13 +96,15 @@ def main(argv=None) -> int:
             if sec in ini:
                 opts.load_from_config(ini[sec])
     opts.load_from_args(rest)
-    from .. import f32_matmuls, resolve_device
+    from .. import deterministic_convs, f32_matmuls, resolve_device
     from ..parallel import mesh, multihost
 
     mesh.check_batch_divisible(opts.minibatch_size, multihost.configured_world_size())
     # f32 stays f32 on the card: the f32 policy's convs, and the bf16
-    # policy's f32 parts (the spectral-norm scale, the mel loss)
-    with multihost.distributed(resolve_device(opts.device)), f32_matmuls():
+    # policy's f32 parts (the spectral-norm scale, the mel loss); and a run
+    # repeats bit for bit
+    with (multihost.distributed(resolve_device(opts.device)), f32_matmuls(),
+          deterministic_convs(opts.deterministic)):
         return _train(opts)
 
 

@@ -111,13 +111,15 @@ def resolve(tag: str) -> str:
     return path
 
 
-def load(tag_or_path: str, device="cuda"):
+def load(tag_or_path: str, device="cuda", load_weight: bool = True):
     """torch.hub.load analog: tag (with +option args) or path -> (model on
-    ``device``, meta)."""
+    ``device``, meta); ``load_weight=False`` leaves the weights at
+    ``build_model``'s seeded init (``infer_helper.load_model``)."""
     resolve_device(device)
     base, opts = _parse_option_args(tag_or_path)
     path = resolve(tag_or_path if os.path.exists(tag_or_path) else base)
-    return infer_helper.load_model(path, option_args=opts or None, device=device)
+    return infer_helper.load_model(path, option_args=opts or None, device=device,
+                                   load_weight=load_weight)
 
 
 # ---------------------------------------------------------------------------

@@ -139,9 +139,12 @@ def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]
 
 
 def load_model(path: str, option_args: Optional[Dict[str, Any]] = None,
-               device="cuda") -> Tuple[nn.Module, Dict[str, Any]]:
+               device="cuda", load_weight: bool = True) -> Tuple[nn.Module, Dict[str, Any]]:
     """Checkpoint file (the port's or satpu's) -> (model on ``device``,
-    meta). ``option_args`` override stored build params.
+    meta). ``option_args`` override stored build params. With
+    ``load_weight=False`` the model is built from the file's meta and the
+    option args alone: its weights are ``build_model``'s seeded init,
+    not the file's.
 
     satpu creates a module's parameters when it first runs, so its
     checkpoint of a model initialized through one method (an anonymizer
@@ -153,6 +156,8 @@ def load_model(path: str, option_args: Optional[Dict[str, Any]] = None,
     build_params = dict(meta.get("build_params", {}))
     if option_args:
         build_params.update(option_args)
+    if not load_weight:
+        return build_model(meta["model_id"], device=dev, **build_params), meta
     model = build_model(meta["model_id"], device="cpu", seed=None, **build_params)
     satpu = is_satpu_checkpoint(path)
     missing, unexpected = model.load_state_dict(state_dict, strict=not satpu)

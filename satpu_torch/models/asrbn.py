@@ -26,6 +26,7 @@ import torch.nn as nn
 from ..ops.cmvn import utt_cmvn
 from ..parallel import mesh
 from ..ops.fbank import fbank as kaldi_fbank
+from ..ops.fbank import num_frames
 from .tdnnf import (
     NaturalAffineTransform,
     TDNNFBatchNorm,
@@ -249,7 +250,7 @@ def wav2vec2_tdnnf_config(output_dim: int = 3280, bottleneck: str = "none",
 
 def fbank_num_frames(num_samples: int) -> int:
     """kaldi fbank frame count, snip_edges=False."""
-    return (num_samples + 80) // 160
+    return num_frames(num_samples)
 
 
 def bn_num_frames(num_samples: int) -> int:

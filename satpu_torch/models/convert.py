@@ -56,7 +56,10 @@ wav2vec2 front does (``from_satpu_wavlm``: its attention's
 ``gru_rel_pos_linear`` and ``gru_rel_pos_const`` keep their names, layer
 0's ``rel_attn_embed`` becomes ``rel_attn_embed.weight``) under
 ``preprocessor.feature_extract.``, and ``preprocessor/feature_weight``
-keeps its name.
+keeps its name. ``from_satpu_pcmn`` carries an ``AdaptivePCMN``'s param
+dict across by name. ``convert_sidekit`` takes a reference sidekit state_dict
+(ECAPA or half-ResNet) to satpu's names, then through
+``from_satpu_xvector``.
 """
 from __future__ import annotations
 
@@ -261,6 +264,66 @@ def from_satpu_xvector(variables: Mapping) -> Dict[str, torch.Tensor]:
             prefix = "".join(p + "." for p in scopes[:-1])
             out.update(_gru_tensors(prefix, _GRU_CELL.match(scopes[-1]).group(1), cell))
     return out
+
+
+def _sidekit_scopes(parts, arch: str) -> Tuple[str, ...]:
+    """A reference sidekit module path -> satpu's flax scopes (satpu's
+    ``convert_sidekit``): ``before_speaker_embedding.<name>`` flattens to
+    ``before_speaker_embedding_<name>``; an index under ECAPA's
+    ``layer2``-``layer4`` becomes ``block_<i>``, under a ResNet stage
+    ``layer<k>`` it stays ``<i>``, and elsewhere ``<name>.<i>`` becomes
+    ``<name>_<i>``."""
+    path = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if p == "before_speaker_embedding" and nxt is not None:
+            path.append(f"before_speaker_embedding_{nxt}")
+        elif nxt is not None and nxt.isdigit():
+            if arch == "ecapa" and p in ("layer2", "layer3", "layer4"):
+                path += [p, f"block_{nxt}"]
+            elif p.startswith("layer") and arch != "ecapa":
+                path += [p, nxt]
+            else:
+                path.append(f"{p}_{nxt}")
+        else:
+            path.append(p)
+            i += 1
+            continue
+        i += 2
+    return tuple(path)
+
+
+def convert_sidekit(sd: Mapping[str, Any], arch: str = "ecapa") -> Dict[str, torch.Tensor]:
+    """A reference sidekit ECAPA (``arch="ecapa"``) or half-ResNet state_dict
+    -> the port's x-vector state_dict: ``from_satpu_xvector`` of satpu's
+    ``convert_sidekit`` (``satpu/models/convert.py:141-188``). The
+    preprocessor and spec_augment buffers and ``num_batches_tracked`` are
+    dropped, the running statistics kept, the reference's
+    ``before_speaker_embedding`` Sequential maps onto the
+    ``before_speaker_embedding_*`` modules, and Sequential indices onto the
+    port's module paths."""
+    variables: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for k, t in sd.items():
+        parts = k.split(".")
+        if k.startswith(("preprocessor.", "spec_augment.")) or parts[-1] == "num_batches_tracked":
+            continue
+        arr = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+               else np.asarray(t)).astype(np.float32)
+        leaf = parts[-1]
+        coll = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
+        node = variables[coll]
+        for p in _sidekit_scopes(parts[:-1], arch):
+            node = node.setdefault(p, {})
+        node[{"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)] = arr
+    return from_satpu_xvector(variables)
+
+
+def from_satpu_pcmn(params: Mapping) -> Dict[str, torch.Tensor]:
+    """satpu ``AdaptivePCMN.init``'s param dict -> ``ops.cmvn.AdaptivePCMN``'s
+    state_dict (the same names and layouts)."""
+    return {k: _tensor((k,), v) for k, v in params.items()}
 
 
 def ng_states_from_satpu(ng_state: Mapping) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:

@@ -150,6 +150,10 @@ class CoreHifiGanConfig:
     # "float32" | "bfloat16": conv compute dtype (parameters and the final
     # tanh stay f32)
     compute_dtype: str = "float32"
+    # under bfloat16, an upsampling stage narrower than this runs its
+    # transposed conv and resblocks in f32 (conv_pre and conv_post follow
+    # compute_dtype)
+    bf16_min_channels: int = 0
 
 
 class CoreHifiGan(nn.Module):
@@ -166,8 +170,9 @@ class CoreHifiGan(nn.Module):
         for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
             ch_in = c.upsample_initial_channel // (2 ** i)
             ch = c.upsample_initial_channel // (2 ** (i + 1))
-            ups.append(WNConvTranspose1d(ch_in, ch, k, u, padding=(k - u) // 2, dtype=dt))
-            resblocks.extend(ResBlock1(ch, rk, tuple(rd), dtype=dt)
+            stage_dt = dt if ch >= c.bf16_min_channels else None
+            ups.append(WNConvTranspose1d(ch_in, ch, k, u, padding=(k - u) // 2, dtype=stage_dt))
+            resblocks.extend(ResBlock1(ch, rk, tuple(rd), dtype=stage_dt)
                              for rk, rd in zip(c.resblock_kernel_sizes,
                                                c.resblock_dilation_sizes))
         self.ups = nn.ModuleList(ups)

@@ -25,3 +25,17 @@ def _upload(maker, args, device) -> torch.Tensor:
 
 
 _cached_upload = functools.lru_cache(maxsize=None)(_upload)
+
+
+_CMVN_EXPORTS = ("global_cmvn", "utt_cmvn", "utt_cmvn_keep_zeros")
+
+
+def __getattr__(name: str):
+    """``global_cmvn``, ``utt_cmvn`` and ``utt_cmvn_keep_zeros`` of
+    ``ops.cmvn``, imported at first use: a process that loads only
+    ``ops.yaapt`` (to run an exported program) imports nothing more."""
+    if name in _CMVN_EXPORTS:
+        from . import cmvn
+
+        return getattr(cmvn, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

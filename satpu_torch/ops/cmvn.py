@@ -5,8 +5,14 @@
   unpadded utterances.
 - ``utt_cmvn_keep_zeros``: the F0 variant; exact zeros (unvoiced frames) are
   excluded from the statistics and stay zero.
+- ``global_cmvn``: apply a kaldi (2, dim+1) global statistics matrix.
+- ``AdaptivePCMN``: adaptive parametric cepstral mean normalization
+  (Kalinli et al., ICASSP 2019), the paper's behaviour as satpu's.
 - ``SpeakerCMVN``: per-speaker F0 statistics over a training set (numpy),
   the ``f0_norm = speaker`` flow of ``train_vc`` and of serving.
+- ``CMVN``: kaldi per-speaker statistics applied to numpy arrays or to
+  tensors on any device, with ``utt2spk`` routing, the averaged
+  ``generic-spk`` fallback and ``reverse``; ``from_ark`` reads them.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
 
 def _time_mask(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -74,6 +82,65 @@ def utt_cmvn_keep_zeros(x: torch.Tensor, var_norm: bool = True,
     return out[0] if squeeze else out
 
 
+def global_cmvn(x: torch.Tensor, stats, var_norm: bool = False) -> torch.Tensor:
+    """Apply kaldi global CMVN stats (2 x (dim+1): sums with the frame count
+    last, sums of squares) to ``x`` [..., dim], in ``x``'s dtype."""
+    stats = torch.as_tensor(stats, dtype=x.dtype, device=x.device)
+    count = stats[0, -1]
+    mean = stats[0, :-1] / count
+    out = x - mean
+    if var_norm:
+        var = stats[1, :-1] / count - mean ** 2
+        out = out / torch.sqrt(torch.clamp(var, min=1e-10))
+    return out
+
+
+class AdaptivePCMN(nn.Module):
+    """Adaptive parametric cepstral mean normalization: per-dimension context
+    convolutions over [left_context, right_context] (replicate-padded in
+    time) predict beta, alpha and mu_n, and the output is
+    ``(beta + 1) x - alpha mu_n``. The three are one depthwise ``conv1d``
+    with three outputs a dimension. Parameters as satpu's: ``beta_w``,
+    ``alpha_w``, ``mu_n_0_w`` [D, ctx] and a ``bias`` [D] shared by the
+    three (``models.convert.from_satpu_pcmn`` carries satpu's across).
+    satpu's, and this, is the paper's behaviour: the reference's forward
+    returns its input."""
+
+    def __init__(self, input_dim: int, left_context: int = -10, right_context: int = 10):
+        super().__init__()
+        if not (left_context < 0 < right_context):
+            raise ValueError(f"context [{left_context}, {right_context}] must straddle 0")
+        self.input_dim, self.left, self.right = input_dim, left_context, right_context
+        self.tot_context = right_context - left_context + 1
+        shape = (input_dim, self.tot_context)
+        self.beta_w = nn.Parameter(torch.empty(shape))
+        self.alpha_w = nn.Parameter(torch.empty(shape))
+        self.mu_n_0_w = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(input_dim))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Weights ~ N(0, 0.01^2), bias 0, as satpu's ``init``."""
+        for w in (self.beta_w, self.alpha_w, self.mu_n_0_w):
+            w.copy_(torch.randn(w.shape, generator=generator) * 0.01)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, D] -> [B, T, D]; T at least the context."""
+        B, T, D = x.shape
+        if D != self.input_dim or T < self.tot_context:
+            raise ValueError(f"input [{B}, {T}, {D}]: needs D = {self.input_dim} and T >= "
+                             f"{self.tot_context}")
+        xt = x.transpose(1, 2)
+        xp = F.pad(xt, (-self.left, self.right), mode="replicate")
+        w = torch.stack([self.beta_w, self.alpha_w, self.mu_n_0_w], dim=1)  # [D, 3, ctx]
+        y = F.conv1d(xp, w.reshape(3 * D, 1, self.tot_context).to(x.dtype),
+                     self.bias.repeat_interleave(3).to(x.dtype), groups=D)
+        beta, alpha, mu_n0 = y.reshape(B, D, 3, T).unbind(2)
+        return ((beta + 1.0) * xt - alpha * mu_n0).transpose(1, 2)
+
+
 class SpeakerCMVN:
     """Per-speaker global mean/variance normalization over nonzero values
     (numpy, on the host). The statistics are a plain dict that rides a
@@ -123,3 +190,70 @@ class SpeakerCMVN:
         out = cls(keep_zeros=meta.get("keep_zeros", True))
         out.stats = dict(meta.get("stats", {}))
         return out
+
+
+class CMVN:
+    """Kaldi-statistics CMVN. ``stats`` maps a key to a kaldi (2, dim+1)
+    matrix (row 0 the feature sums with the frame count last, row 1 the
+    sums of squares); keys are speakers (``utt2spk`` routes utterances to
+    them) or, for a bare matrix, ``None``. The ``generic-spk`` entry, the
+    average of every key's bias and scale, serves an utterance whose
+    speaker has none. ``__call__`` takes a numpy array or a tensor on any
+    device, and ``reverse`` undoes the normalization."""
+
+    def __init__(self, stats, norm_means: bool = True, norm_vars: bool = False,
+                 utt2spk: Optional[dict] = None, reverse: bool = False,
+                 std_floor: float = 1e-20):
+        if not isinstance(stats, dict):
+            stats = {None: np.asarray(stats)}
+        self.norm_means, self.norm_vars, self.reverse = norm_means, norm_vars, reverse
+        self.utt2spk = utt2spk
+        self.bias: dict = {}
+        self.scale: dict = {}
+        for spk, st in stats.items():
+            st = np.asarray(st)
+            if st.shape[0] != 2:
+                raise ValueError(f"stats of {spk!r}: shape {st.shape}, not (2, dim+1)")
+            count = float(np.ravel(st[0, -1])[0])
+            mean = st[0, :-1] / count
+            var = st[1, :-1] / count - mean * mean
+            std = np.maximum(np.sqrt(np.maximum(var, 0.0)), std_floor)
+            self.bias[spk] = (-mean).astype(np.float32)
+            self.scale[spk] = (1.0 / std).astype(np.float32)
+        biases, scales = list(self.bias.values()), list(self.scale.values())
+        self.bias["generic-spk"] = sum(biases[1:], biases[0]) / len(stats)
+        self.scale["generic-spk"] = sum(scales[1:], scales[0]) / len(stats)
+
+    def __call__(self, x, uttid=None):
+        if self.utt2spk is not None and uttid != "generic-spk":
+            spk = self.utt2spk[uttid]
+        else:
+            spk = uttid if uttid in self.bias else None
+            if spk not in self.bias:
+                spk = "generic-spk"
+        b, s = self.bias[spk], self.scale[spk]
+        if isinstance(x, torch.Tensor):
+            b, s = torch.from_numpy(b).to(x.device), torch.from_numpy(s).to(x.device)
+        if not self.reverse:
+            if self.norm_means:
+                x = x + b
+            if self.norm_vars:
+                x = x * s
+        else:
+            if self.norm_vars:
+                x = x / s
+            if self.norm_means:
+                x = x - b
+        return x
+
+    @classmethod
+    def from_ark(cls, path: str, **kw) -> "CMVN":
+        """Per-speaker stats from a kaldi ark (or scp) of (2, dim+1) matrices."""
+        from ..utils import scp_io
+
+        if path.endswith(".scp"):
+            r = scp_io.FileReader(path)
+            stats = {k: r[k] for k in r.keys()}
+        else:
+            stats = dict(scp_io.read_ark(path))
+        return cls(stats, **kw)

@@ -25,6 +25,14 @@ def _next_power_of_2(x: int) -> int:
     return 1 if x == 0 else 2 ** (int(x - 1).bit_length())
 
 
+def num_frames(num_samples: int, window_shift: int = 160, window_size: int = 400,
+               snip_edges: bool = False) -> int:
+    """Kaldi's frame count of ``num_samples`` samples (kaldifeature.py:58-77)."""
+    if snip_edges:
+        return 0 if num_samples < window_size else 1 + (num_samples - window_size) // window_shift
+    return (num_samples + window_shift // 2) // window_shift
+
+
 def _povey_window(window_size: int) -> np.ndarray:
     n = np.arange(window_size, dtype=np.float64)
     return ((0.5 - 0.5 * np.cos(2 * np.pi * n / (window_size - 1))) ** 0.85).astype(np.float32)

@@ -68,10 +68,10 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) ->
     """[B, T] -> [B, n_fft//2+1, frames] magnitude with HiFi-GAN padding."""
     pad = (n_fft - hop_size) // 2
     y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    spec = torch.stft(y, n_fft, hop_length=hop_size, win_length=n_fft,
-                      window=_window(n_fft, win_size, y), center=False,
-                      return_complex=True)
-    return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    # torch.stft's frames are an as_strided view, whose backward adds the
+    # overlaps with atomics on the card (a varying order); unfold's does not
+    spec = torch.fft.rfft(y.unfold(-1, n_fft, hop_size) * _window(n_fft, win_size, y))
+    return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9).transpose(1, 2)
 
 
 def mel_spectrogram(y: torch.Tensor, n_fft: int = 1024, num_mels: int = 80,

@@ -1,5 +1,6 @@
-"""Config system: INI files with ``${:var}`` interpolation + dataclass opts
-(the part of ``satpu.utils.config`` the CLIs use).
+"""Config system: INI files with ``${:var}`` interpolation + dataclass opts,
+one-value parameter files and dict shards (the part of
+``satpu.utils.config`` that runs without jax).
 
 INI semantics:
 - a ``[var]`` section defines variables,
@@ -15,7 +16,7 @@ import dataclasses
 import os
 import re
 import sys
-from typing import Any, Dict, TypeVar
+from typing import Any, Dict, List, Type, TypeVar
 
 _RE_VAR = re.compile(r"[$][{][:]([a-zA-Z0-9_-]+)[}]")
 _RE_INLINE_COMMENT = re.compile(r"\s+#")
@@ -105,3 +106,25 @@ class Opts:
         for field in dataclasses.fields(self):
             setattr(self, field.name, getattr(args, field.name))
         return self
+
+
+def read_single_param_file(src: str, typename: Type = int):
+    """The first line of ``src`` as a ``typename``."""
+    with open(src) as f:
+        return typename(f.readline().strip())
+
+
+def write_single_param_file(value: Any, filename: str) -> None:
+    with open(filename, "w") as f:
+        f.write(f"{value}")
+
+
+def split_dict(d: Dict, n: int) -> List[Dict]:
+    """``n`` contiguous shards of ``d``, the first ``len % n`` one longer
+    (reference script_utils.py:500-507)."""
+    keys = list(d.keys())
+    k, m = divmod(len(keys), n)
+    return [
+        {key: d[key] for key in keys[i * k + min(i, m):(i + 1) * k + min(i + 1, m)]}
+        for i in range(n)
+    ]

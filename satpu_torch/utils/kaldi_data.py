@@ -1,19 +1,24 @@
-"""Kaldi-style data-directory IO, dependency-free (the part of
-``satpu.utils.kaldi_data`` that the port's CLIs need).
+"""Kaldi-style data-directory IO, dependency-free (a copy of
+``satpu.utils.kaldi_data``; WAV files are written as PCM16 only).
 
 wav.scp (including piped ``cmd |`` entries, and offset reads), two-column
 tables, utt2len / utt2dur (computed and written when missing), RIFF WAV
-decoding (PCM8/16/24/32, float32/64) and PCM16 encoding, and the subset /
-combine of whole data dirs (kaldi's subset_data_dir.sh / combine_data.sh).
+decoding (PCM8/16/24/32, float32/64) and PCM16 encoding, the subset /
+combine of whole data dirs (kaldi's subset_data_dir.sh / combine_data.sh),
+scp shards (``split_scp``) and the ``WavScpDataset`` of lazily loaded
+``WavInfo`` records.
 """
 from __future__ import annotations
 
 import os
 import struct
 import subprocess
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from .config import split_dict as split_scp  # noqa: F401  n contiguous shards of an scp
 
 
 def parse_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
@@ -240,3 +245,56 @@ def combine_data_dirs(dest: str, srcs) -> None:
                 {s: " ".join(us) for s, us in
                  sorted(spk2utt_from_utt2spk(merged).items())},
                 os.path.join(dest, "spk2utt"))
+
+
+# ---------------------------------------------------------------------------
+# WavScp dataset (reference utils/wav_scp_dataset.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class WavInfo:
+    """One utterance: name + wav.scp entry, audio loaded lazily."""
+
+    name: str
+    filename: str
+    wav: Optional[np.ndarray] = field(default=None, repr=False)
+    sample_rate: int = 16000
+
+    def load(self) -> np.ndarray:
+        if self.wav is None:
+            self.wav, self.sample_rate = load_wav_from_scp(self.filename)
+        return self.wav
+
+
+class WavScpDataset:
+    """Iterates WavInfo records over a wav.scp."""
+
+    def __init__(self, utt2wav: Dict[str, str]):
+        self.utt2wav = utt2wav
+        self.utts = list(utt2wav.keys())
+
+    @classmethod
+    def from_wav_scpfile(cls, wav_scp: str) -> "WavScpDataset":
+        return cls(read_wav_scp(wav_scp))
+
+    def __len__(self) -> int:
+        return len(self.utts)
+
+    def __getitem__(self, i: int) -> WavInfo:
+        utt = self.utts[i]
+        info = WavInfo(name=utt, filename=self.utt2wav[utt])
+        info.load()
+        return info
+
+    def __iter__(self) -> Iterator[WavInfo]:
+        for i in range(len(self)):
+            yield self[i]
+
+
+def parse_wavinfo_wav(wavinfo) -> np.ndarray:
+    """Accept WavInfo or raw array, return [C, N] float32 audio."""
+    if isinstance(wavinfo, WavInfo):
+        return wavinfo.load()
+    x = np.asarray(wavinfo, dtype=np.float32)
+    return x[None, :] if x.ndim == 1 else x

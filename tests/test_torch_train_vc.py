@@ -207,6 +207,24 @@ def test_tf32_is_off_while_training_and_restored(vc_data, small_discriminators, 
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 
+@pytest.mark.parametrize("flag", ["true", "false"])
+def test_deterministic_convs_while_training_and_restored(flag, monkeypatch):
+    """``--deterministic`` (on by default) puts cuDNN on its deterministic
+    conv algorithms without autotuning for the whole run; ``false`` leaves
+    the flags as they were; either way they are as they were on return."""
+    from satpu_torch.bin import train_vc
+
+    seen = []
+    monkeypatch.setattr(train_vc, "_train", lambda opts: seen.append(
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)) or 0)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    args = ["--device", "cpu"] + (["--deterministic", flag] if flag == "false" else [])
+    assert train_vc.main(args) == 0
+    assert seen == [(True, False) if flag == "true" else (False, True)]
+    assert not torch.backends.cudnn.deterministic and torch.backends.cudnn.benchmark
+
+
 def test_multi_process_is_refused(vc_data, monkeypatch):
     """Under a launcher's world of 2 a minibatch that 2 does not divide is
     refused, as satpu refuses it, before any process group or file; the

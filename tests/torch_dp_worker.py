@@ -136,7 +136,26 @@ def run_gan(inp, rank=0, world=1):
     return out
 
 
-CASES = {"chain": run_chain, "asv": run_asv, "gan": run_gan}
+def run_bn(inp, rank=0, world=1):
+    """The ASV batch norm (``sidekit.nn.BatchNorm``, in ``x``'s dtype) in
+    training on this rank's block of ``inp["x"]`` [B, C, T], backward from
+    ``inp["g"]``: the output and input gradient blocks, this rank's
+    weight / bias gradients, the running statistics."""
+    from satpu_torch.sidekit.nn import BatchNorm
+
+    torch.set_num_threads(1)
+    x = torch.from_numpy(block(inp["x"], rank, world)).requires_grad_(True)
+    bn = BatchNorm(x.shape[1]).to(x.dtype).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(inp["weight"]))
+        bn.bias.copy_(torch.from_numpy(inp["bias"]))
+    y = bn(x)
+    y.backward(torch.from_numpy(block(inp["g"], rank, world)))
+    return {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad, "dbias": bn.bias.grad,
+            "running_mean": bn.running_mean.clone(), "running_var": bn.running_var.clone()}
+
+
+CASES = {"chain": run_chain, "asv": run_asv, "gan": run_gan, "bn": run_bn}
 
 
 def main(case, rank, world, port, workdir):
