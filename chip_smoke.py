@@ -85,8 +85,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 20. w2v2-train: the ``prepare_data`` CLI (prepare_data.ini: grapheme
     lexicon, speed perturbation) over 32 voiced utterances of 3 s, then the
     ``train_asr`` CLI with egs/asr/librispeech/configs/
-    tdnnf_wav2vec2_vq_48.ini at full width (wav2vec2 large, TDNN-F 1024,
-    VQ-48, B=16, f32, NG on) for 4 steps on prepare_data's den graph,
+    tdnnf_wav2vec2_vq_48.ini at full width, cut in depth by
+    ``--wav2vec2-layers CUT_LAYERS`` (wav2vec2 large at CUT_LAYERS of its
+    24 layers, TDNN-F 1024, VQ-48, B=16, f32, NG on) for 4
+    steps on prepare_data's den graph,
     normalization FST and egs: the logged objf, K2f/K2b launched every step,
     final.ckpt served on the card by ``infer_helper.load_model`` with
     finite ``extract_bn`` features and VQ indices in range; then 2 steps
@@ -95,14 +97,15 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 21. w2v2-cpu: one tiny wav2vec2-VQ step and one tiny speaker-adversarial
     step on the card against the port's CPU path (loss, gradients in
     relative L2, batch-norm statistics);
-22. w2v2-throughput: full-width B5 train steps from a fixed batch of B=16 x
-    3 s at 3280 pdfs on the 1641-state den graph, f32 and bf16: ms per
+22. w2v2-throughput: full-width B5 train steps (CUT_LAYERS layers) from a
+    fixed batch of B=16 x 3 s at 3280 pdfs on the 1641-state den graph, f32 and bf16: ms per
     step, audio-seconds per second, peak memory, the ``chain.<phase>``
     split, busy share and top device items; K2f/K2b held against their
     plain versions on this net's chain output (bitwise on repeat, one
     launch a call) and timed against their bound;
-23. wavlm-eval: the ``asv_xvector`` WavLM-large + ECAPA-512 judge (24 x
-    1024 transformer, relative position buckets, ECAPA on its 1024-wide
+23. wavlm-eval: the ``asv_xvector`` WavLM-large + ECAPA-512 judge (its
+    transformer cut to CUT_LAYERS of 24 layers of 1024, relative position
+    buckets, ECAPA on its 1024-wide
     weighted layer sum; random weights from seed 0, batch norms
     calibrated) saved, and the ``eval_anon`` CLI on the card over the slice
     phase's dirs (24 trials), then on the CPU: every x-vector (cosine >=
@@ -132,15 +135,15 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     then two gloo ranks on cuda:0 (CUDA tensors),
     each on half of every global batch, against one rank on the global
     batches for 2 steps of each trainer (the networks in f64, the GAN at
-    B=8): losses rel 1e-5, the states rel 1e-4 in relative L2, rank 1
-    equal to rank 0, K2f/K2b launched in every chain step (a correctness
+    B=8): losses rel 1e-5, every tensor of the states rel 1e-4 in relative
+    L2, rank 1 equal to rank 0, K2f/K2b launched in every chain step (a correctness
     check: gloo stages through the host);
 28. serve-mesh: ``anonymize --serve-mesh true`` on the card bitwise the run
     without the flag (one device runs unsharded), and ``process_data`` over
     [cuda:0, cuda:0] (each batch in two blocks) within 1e-6 of the
     unsharded run, K1 launched once per block;
-29. export: ``hub.export_convert`` of the flagship (bf16 serving) at B=8 x
-    10 s, loaded with ``torch.export.load`` in a fresh process that imports
+29. export: ``hub.export_convert`` of the flagship (bf16 serving) at B=2 x
+    2 s, loaded with ``torch.export.load`` in a fresh process that imports
     only the SHC op's registration and run there: export and load times,
     K1's launches inside the program, its departure from eager, and
     audio-seconds per second exported and eager;
@@ -161,9 +164,29 @@ Usage (from the repository root):  python3 chip_smoke.py
 ``python3 chip_smoke.py --kernel-only`` runs the SHC build and kernel phase
 alone (to time another tree's SHC kernel with the same phase, run this
 file from that tree's root).
+
+``python3 chip_smoke.py --cards N`` is the multi-card run (satpu's
+``dryrun_multichip``; N = 4 on a four-H100 host; it refuses with exit 1
+when fewer than N cards are visible). After the build it runs only: K1 and
+K2f/K2b on every card with another card current (against their plain
+versions, bitwise on repeat, one launch a call on the tensors' card,
+timed on each card); the slice, train and asv phases and the gan phase's
+data (the one-card runs the rest is held against); data parallelism over
+N NCCL ranks (the f64 check against one process, with controls that say
+where the chain's runs part; each trainer's f32 step a card alone and in
+the N ranks with the scaling efficiency; the three training CLIs under
+``torch.distributed.run --nproc-per-node N`` against one process on the
+same global batches); ``anonymize --device cuda:1``,
+``anonymize --serve-mesh true`` and ``process_data`` over the N cards,
+then the flagship bf16 at B=128 x 10 s split over them; the eval phase and
+``eval_anon --serve-mesh true``; the exported anonymizer on cuda:1. Each
+path prints a ``[time]`` line; the last two lines are the ones above.
+``--cards N --only PARTS`` runs the parts named (a comma list of
+CARD_PARTS: kernels, f64, speed, clis, serve, eval, export).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -219,9 +242,13 @@ ASV_SPEAKERS, ASV_HEAD = 16, 5994
 W2V2_PREP_CONFIG = "egs/asr/librispeech/configs/prepare_data.ini"
 W2V2_CONFIG = "egs/asr/librispeech/configs/tdnnf_wav2vec2_vq_48.ini"
 SPKADV_CONFIG = "egs/asr/librispeech/configs/tdnnf_spkadv.ini"
-# the WavLM-large + ECAPA-512 judge (XVectorConfig's defaults otherwise), the
-# small one of the card-vs-CPU step, and the distribution phase's zoo tag
-WAVLM_ASV = {"frontend": "wavlm"}
+# the B5 front (wav2vec2 large) and the WavLM-large judge run at CUT_LAYERS of
+# their 24 transformer layers, every width kept, to keep the script within
+# its time limit: their full-depth rates stand in PERF.md section 5
+CUT_LAYERS = 4
+# the WavLM-large + ECAPA-512 judge (XVectorConfig's defaults otherwise; the
+# front's config in wavlm_asv()), the small one of the card-vs-CPU step, and
+# the distribution phase's zoo tag
 WAVLM_TINY = {"frontend": "wavlm", "num_speakers": 10, "channels": 32, "embedding_size": 16,
               "wavlm": {"conv_dim": [16, 16, 16], "conv_kernel": [10, 8, 4],
                         "conv_stride": [5, 8, 8], "hidden_size": 32, "num_hidden_layers": 2,
@@ -231,9 +258,26 @@ WAVLM_TINY = {"frontend": "wavlm", "num_speakers": 10, "channels": 32, "embeddin
                         "feat_extract_norm": "layer", "conv_bias": True}}
 DIST_TAG = "hifigan_bn_tdnnf_600h_vq_48_v1"
 # scale-out: the steps of the data-parallel check, the exported program's shapes
-DP_STEPS = 2
-DP_GAN_BATCH = 8  # the f64 GAN of the two-rank check (4 a rank)
-EXPORT_BATCH, EXPORT_SECONDS = 8, 10
+DP_STEPS, DP_LR = 2, 1e-3
+DP_GAN_BATCH = 8  # the f64 GAN of the data-parallel checks (4 a rank of two, 2 of four)
+EXPORT_BATCH, EXPORT_SECONDS = 2, 2
+
+
+def wavlm_asv():
+    """The WavLM judge's build parameters: WavLM-large at CUT_LAYERS layers
+    into ECAPA-512."""
+    from satpu_torch.models.wavlm import WavLMConfig
+
+    front = dataclasses.replace(WavLMConfig.large(), num_hidden_layers=CUT_LAYERS)
+    return {"frontend": "wavlm", "wavlm": dataclasses.asdict(front)}
+
+
+def w2v2_cut():
+    """The B5 front at CUT_LAYERS layers: wav2vec2 large's config, which
+    train_asr builds with ``--wav2vec2-layers CUT_LAYERS``."""
+    from satpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    return dataclasses.replace(Wav2Vec2Config.large(), num_hidden_layers=CUT_LAYERS)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1148,16 +1192,43 @@ def rank_scores(np, xv_enroll, spk_of, xv_trial, trials):
                                   np.stack([xv_trial[u] for _, u, _ in trials]))
 
 
-def phase_eval(np, torch, card):
-    """The eval_anon CLI on the card over the slice phase's anonymized dir,
-    then the same run on the port's CPU path. Returns what eval-throughput
-    reuses: the graph, the two checkpoints."""
-    from satpu_torch import infer_helper, native
+def eval_cli(paths, device: str, name: str, *extra):
+    """The eval_anon CLI over the slice phase's anonymized dir with the eval
+    phase's models (``paths``) on ``device``, results in WORK/eval/<name>:
+    (results, wall s, native lattice decodes, ctm words by utterance,
+    loglikes by utterance)."""
+    from satpu_torch import native
     from satpu_torch.bin import eval_anon
-    from satpu_torch.bin.pipeline import DEFAULT_BUCKETS, bucket_for
-    from satpu_torch.sidekit.trainer import extract_xvectors
-    from satpu_torch.utils import kaldi_data
     from satpu_torch.utils.scp_io import read_ark
+
+    res = os.path.join(WORK, "eval", name)
+    native.decode_lattice.calls = 0
+    t0 = time.perf_counter()
+    rc = eval_anon.main([
+        "--device", device, "--data", os.path.join(WORK, "data_anon"), "--asr-checkpoint",
+        paths["asr"], "--decode-graph", paths["graph"], "--words-txt", paths["words"],
+        "--write-ctm", "true", "--dump-loglikes", os.path.join(res, "loglikes.ark"),
+        "--asv-checkpoint", paths["asv"], "--enroll-dir", os.path.join(WORK, "data"),
+        "--trials", paths["trials"], "--xvector-mode", "chunked", "--results", res, *extra])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"eval_anon on {device} {' '.join(extra)} exited {rc}")
+    with open(os.path.join(res, "results.json")) as f:
+        out = json.load(f)
+    ctm = {}
+    with open(os.path.join(res, "hyp.ctm")) as f:
+        for line in f:
+            ctm.setdefault(line.split()[0], []).append(line.split()[4])
+    return out, wall, native.decode_lattice.calls, ctm, dict(read_ark(
+        os.path.join(res, "loglikes.ark")))
+
+
+def eval_setup(np, torch):
+    """The eval phase's inputs: the word graph, the full-width ASR and
+    x-vector checkpoints (norms calibrated), the slice phase's anonymized
+    dir's text and the trials. Returns (graph, paths, the words' count, the
+    trials)."""
+    from satpu_torch import infer_helper
+    from satpu_torch.utils import kaldi_data
 
     graph, table, sentence = eval_graph(np)
     ev = os.path.join(WORK, "eval")
@@ -1195,27 +1266,25 @@ def phase_eval(np, torch, card):
     trials = [(s, u, utt2spk[u] == s) for u in anon_utts for s in speakers]
     with open(paths["trials"], "w") as f:
         f.writelines(f"{s} {u} {'target' if t else 'nontarget'}\n" for s, u, t in trials)
+    return graph, paths, n_words, trials
+
+
+def phase_eval(np, torch, card):
+    """The eval_anon CLI on the card over the slice phase's anonymized dir,
+    then the same run on the port's CPU path. Returns what eval-throughput
+    reuses: the graph, the two checkpoints."""
+    from satpu_torch import infer_helper, native
+    from satpu_torch.bin.pipeline import DEFAULT_BUCKETS, bucket_for
+    from satpu_torch.sidekit.trainer import extract_xvectors
+    from satpu_torch.utils import kaldi_data
+
+    graph, paths, n_words, trials = eval_setup(np, torch)
+    data, anon = os.path.join(WORK, "data"), os.path.join(WORK, "data_anon")
+    utt2spk = kaldi_data.read_keyed_text(os.path.join(data, "utt2spk"))
+    anon_utts = sorted(kaldi_data.read_wav_scp(os.path.join(anon, "wav.scp")))
 
     def run(device):
-        res = os.path.join(ev, f"results_{device}")
-        native.decode_lattice.calls = 0
-        t0 = time.perf_counter()
-        rc = eval_anon.main([
-            "--device", device, "--data", anon, "--asr-checkpoint", paths["asr"],
-            "--decode-graph", paths["graph"], "--words-txt", paths["words"],
-            "--write-ctm", "true", "--dump-loglikes", os.path.join(res, "loglikes.ark"),
-            "--asv-checkpoint", paths["asv"], "--enroll-dir", data,
-            "--trials", paths["trials"], "--xvector-mode", "chunked", "--results", res])
-        wall = time.perf_counter() - t0
-        check(rc == 0, f"eval_anon on {device} exited {rc}")
-        with open(os.path.join(res, "results.json")) as f:
-            out = json.load(f)
-        ctm = {}
-        with open(os.path.join(res, "hyp.ctm")) as f:
-            for line in f:
-                ctm.setdefault(line.split()[0], []).append(line.split()[4])
-        return out, wall, native.decode_lattice.calls, ctm, dict(read_ark(
-            os.path.join(res, "loglikes.ark")))
+        return eval_cli(paths, device, f"results_{device}")
 
     check(native.available(), "the native decoder does not build")
     out, wall, decodes, ctm, lls = run("cuda")
@@ -1445,14 +1514,12 @@ def gan_shc_check(np, torch, data):
     return worst
 
 
-def phase_gan(np, torch, card):
-    """The train_vc CLI on the card at hifigan.ini's widths for one epoch;
-    returns the SHC kernel's launches over that run and its largest abs
-    error against the plain version at the run's shapes."""
+def gan_dirs(np):
+    """The gan phase's data: a train dir of one voiced utterance for each of
+    the flagship's 247 speakers and a dev dir of GAN_DEV (1.1-1.6 s), and
+    the frozen extractor (the flagship's TDNN-F + VQ-48, random weights):
+    {"train", "dev", "asrbn"} paths under WORK/gan."""
     from satpu_torch import infer_helper
-    from satpu_torch.bin import anonymize, train_vc
-    from satpu_torch.hifigan import trainer as gan_trainer
-    from satpu_torch.ops import yaapt as Y
     from satpu_torch.utils import kaldi_data
 
     root = os.path.join(WORK, "gan")
@@ -1473,13 +1540,27 @@ def phase_gan(np, torch, card):
             utt2spk[utt] = SPEAKERS[k]
         kaldi_data.write_keyed_text(wav_scp, os.path.join(d, "wav.scp"))
         kaldi_data.write_keyed_text(utt2spk, os.path.join(d, "utt2spk"))
-    # the frozen extractor: the flagship's TDNN-F + VQ-48 (random weights)
-    asrbn = os.path.join(root, "asrbn.pt")
+    dirs["asrbn"] = os.path.join(root, "asrbn.pt")
     net = infer_helper.build_model("asrbn_tdnnf", device="cpu", seed=0, **FLAGSHIP["asrbn"])
-    infer_helper.save_model(asrbn, "asrbn_tdnnf", FLAGSHIP["asrbn"], net.state_dict())
+    infer_helper.save_model(dirs["asrbn"], "asrbn_tdnnf", FLAGSHIP["asrbn"], net.state_dict())
     del net
     print(f"[gan] {len(SPEAKERS)} train + {GAN_DEV} dev voiced utterances of 1.1-1.6 s and the"
           f" flagship extractor written in {time.perf_counter() - t0:.1f} s")
+    return dirs
+
+
+def phase_gan(np, torch, card):
+    """The train_vc CLI on the card at hifigan.ini's widths for one epoch;
+    returns the SHC kernel's launches over that run and its largest abs
+    error against the plain version at the run's shapes."""
+    from satpu_torch.bin import anonymize, train_vc
+    from satpu_torch.hifigan import trainer as gan_trainer
+    from satpu_torch.ops import yaapt as Y
+    from satpu_torch.utils import kaldi_data
+
+    root = os.path.join(WORK, "gan")
+    dirs = gan_dirs(np)
+    asrbn = dirs["asrbn"]
 
     recorded = []
     step = gan_trainer.GanTrainer.train_step
@@ -1640,7 +1721,7 @@ def phase_gan_throughput(np, torch, card):
     print(f"[gan-throughput] ops of a GAN step (f32 and bf16) that torch calls"
           f" nondeterministic: {sorted(kinds) or 'none'}")
 
-    for dtype, B, iters in (("float32", 32, 3), ("bfloat16", 128, 2)):
+    for dtype, B, iters in (("float32", 32, 3), ("bfloat16", 128, 1)):
         model, trainer, batch = trainer_for(dtype, B)
         for _ in range(2):  # warm-up: cuDNN's algorithm search, the optimizers' state
             trainer.train_step(batch)
@@ -2051,11 +2132,13 @@ def phase_w2v2_train(np, torch, card):
     exp = os.path.join(root, "exp")
     rc, wall, launches, logged = train_asr_cli(
         torch, W2V2_CONFIG, ["--num-pdfs", str(num_pdfs), "--init-weight-model", "",
-                             "--num-epochs", "1", "--diagnostics-interval", "1"],
+                             "--num-epochs", "1", "--diagnostics-interval", "1",
+                             "--wav2vec2-layers", str(CUT_LAYERS)],
         {"prep": prep, "exp": exp})
     check(rc == 0, f"train_asr exited {rc}")
     steps = [r["step"] for r in logged]
-    print(f"[w2v2-train] train_asr on cuda ({W2V2_CONFIG}: wav2vec2 large, TDNN-F 1024, VQ-48,"
+    print(f"[w2v2-train] train_asr on cuda ({W2V2_CONFIG}: wav2vec2 large at {CUT_LAYERS}"
+          f" layers, TDNN-F 1024, VQ-48,"
           f" {num_pdfs} pdfs, NG on, B=16, f32) {len(steps)} steps + held-out diagnostics"
           f" every step in {wall:.1f} s (first call, cold); den kernel launches {launches}"
           f" [{card}]")
@@ -2074,7 +2157,7 @@ def phase_w2v2_train(np, torch, card):
     c, w = model.cfg, model.w2v2
     check(meta["model_id"] == "asrbn_tdnnf_wav2vec2"
           and (w.hidden_size, w.num_hidden_layers, c.hidden_dim, c.codebook_size)
-          == (1024, 24, 1024, 48), f"final.ckpt: {meta['model_id']} {c} {w}")
+          == (1024, CUT_LAYERS, 1024, 48), f"final.ckpt: {meta['model_id']} {c} {w}")
     n_params = sum(p.numel() for p in model.parameters())
     x = voiced_utterance(np, EG_SECONDS, 140.0, seed=9)[0]
     with torch.inference_mode():
@@ -2092,7 +2175,8 @@ def phase_w2v2_train(np, torch, card):
 
     for name, config, extra in (
             ("tdnnf_wav2vec2_vq bf16", W2V2_CONFIG, ["--compute-dtype", "bfloat16",
-                                                      "--init-weight-model", ""]),
+                                                      "--init-weight-model", "",
+                                                      "--wav2vec2-layers", str(CUT_LAYERS)]),
             ("tdnnf_spkadv", SPKADV_CONFIG, [])):
         exp2 = os.path.join(root, name.split()[0] + ("_bf16" if "bf16" in name else ""))
         rc, wall, runs, logged = train_asr_cli(
@@ -2214,7 +2298,6 @@ def phase_w2v2_throughput(np, torch, fx, card):
     from satpu_torch.chain.objf import DenominatorGraph
     from satpu_torch.chain.trainer import ChainTrainer, ChainTrainOpts
     from satpu_torch.models.asrbn import wav2vec2_tdnnf_config
-    from satpu_torch.models.wav2vec2 import Wav2Vec2Config
 
     den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
     g = den.tensors("cuda")
@@ -2227,7 +2310,7 @@ def phase_w2v2_throughput(np, torch, fx, card):
     for dtype, iters in (("float32", 4), ("bfloat16", 4)):
         params = dict(dataclasses.asdict(wav2vec2_tdnnf_config(NUM_PDFS, "vq", 48)),
                       natural_gradient=True, compute_dtype=dtype,
-                      wav2vec2=dataclasses.asdict(Wav2Vec2Config.large()))
+                      wav2vec2=dataclasses.asdict(w2v2_cut()))
         model = infer_helper.build_model("asrbn_tdnnf_wav2vec2", device="cuda", seed=0, **params)
         trainer = ChainTrainer(model, den, ChainTrainOpts(lr=3e-4, compute_dtype=dtype),
                                lr_schedule=lambda step: 3e-4,
@@ -2271,7 +2354,8 @@ def phase_w2v2_throughput(np, torch, fx, card):
         check(calls[0] > 0 and kernels == calls,
               f"a den kernel call is not one launch: {kernels} kernels, {calls} calls a step")
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"[w2v2-throughput] B={B} x {EG_SECONDS} s, tdnnf_wav2vec2_vq (wav2vec2 large +"
+        print(f"[w2v2-throughput] B={B} x {EG_SECONDS} s, tdnnf_wav2vec2_vq (wav2vec2 large at"
+              f" {CUT_LAYERS} layers +"
               f" TDNN-F 1024 + VQ-48, {n_params / 1e6:.1f} M weights, {NUM_PDFS} pdfs), NG on,"
               f" {dtype}: {wall * 1e3:.1f} ms/step (host clock), {B * EG_SECONDS / wall:.1f}"
               f" audio-s/s; peak mem {peak:.2f} GiB [{card}]")
@@ -2320,21 +2404,23 @@ def phase_wavlm_eval(np, torch, card):
     os.makedirs(root)
     path = os.path.join(root, "asv_wavlm.pt")
     t0 = time.perf_counter()
-    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0, **WAVLM_ASV)
+    params = wavlm_asv()
+    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0, **params)
     c, w = model.cfg, model.preprocessor.feature_extract.cfg
     check((c.arch, c.channels, c.embedding_size, c.num_speakers, c.arc_s, c.arc_m, w.hidden_size,
            w.num_hidden_layers, w.num_attention_heads, w.intermediate_size, w.num_buckets,
            w.max_bucket_distance, w.do_stable_layer_norm, w.feat_extract_norm, w.conv_bias,
            w.num_conv_pos_embeddings, w.num_conv_pos_embedding_groups, w.conv_dim[0])
-          == ("ecapa", 512, 192, 1211, 30.0, 0.2, 1024, 24, 16, 4096, 320, 800, True, "layer",
-              True, 128, 16, 512), "WavLM-large + ECAPA-512 widths")
+          == ("ecapa", 512, 192, 1211, 30.0, 0.2, 1024, CUT_LAYERS, 16, 4096, 320, 800, True,
+              "layer", True, 128, 16, 512), "WavLM-large + ECAPA-512 widths")
     norms = calibrate_norms(np, torch, model)
     n = sum(v.numel() for v in model.state_dict().values())
     n_front = sum(p.numel() for p in model.preprocessor.parameters())
-    infer_helper.save_model(path, "asv_xvector", WAVLM_ASV, model.state_dict())
+    infer_helper.save_model(path, "asv_xvector", params, model.state_dict())
     del model
     torch.cuda.empty_cache()
-    print(f"[wavlm-eval] asv_xvector {WAVLM_ASV} (WavLM-large: 24 x 1024, 16 heads, FFN 4096,"
+    print(f"[wavlm-eval] asv_xvector (WavLM-large cut to {CUT_LAYERS} of its 24 x 1024 layers,"
+          f" 16 heads, FFN 4096,"
           f" 320 buckets over 800, pre-norm, layer-norm extractor; ECAPA-512 on 1024 channels,"
           f" 192-d, ArcMargin over 1211): {n / 1e6:.2f} M weights ({n_front / 1e6:.2f} M in the"
           f" front) from seed 0, {norms} batch norms calibrated, saved in"
@@ -2438,7 +2524,8 @@ def phase_wavlm_throughput(np, torch, card, path):
         torch.cuda.synchronize()
     rows = device_rows(prof, 1)
     busy = sum(r[0] for r in rows) / 1e3
-    print(f"[wavlm-throughput] x-vectors, WavLM-large + ECAPA-512, chunked, B=64 windows of 3 s,"
+    print(f"[wavlm-throughput] x-vectors, WavLM-large ({CUT_LAYERS} layers) + ECAPA-512, chunked,"
+          f" B=64 windows of 3 s,"
           f" f32: {64 * 3.0 / wall:.1f} audio-s/s ({wall * 1e3:.1f} ms a batch, host clock);"
           f" device {dev:.1f} of {span:.1f} ms = {dev / span:.0%} busy, {launches} launches;"
           f" peak mem {peak:.2f} GiB [{card}]")
@@ -2491,7 +2578,7 @@ def phase_wavlm_train(np, torch, card):
 
     iters = 4
     model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
-                                     num_speakers=ASV_HEAD, **WAVLM_ASV)
+                                     num_speakers=ASV_HEAD, **wavlm_asv())
     for dtype in ("float32", "bfloat16"):
         B = 64
         while True:
@@ -2514,7 +2601,8 @@ def phase_wavlm_train(np, torch, card):
         host, dev = train_split(prof, iters, prefix="asv.", phases=PHASES)
         rows = device_rows(prof, iters)
         busy = sum(r[0] for r in rows) / 1e3
-        print(f"[wavlm-train] B={B} x 3 s, {dtype}, WavLM-large + ECAPA-512 + ArcMargin over"
+        print(f"[wavlm-train] B={B} x 3 s, {dtype}, WavLM-large ({CUT_LAYERS} layers) + ECAPA-512"
+              f" + ArcMargin over"
               f" {ASV_HEAD} speakers: {wall * 1e3:.1f} ms/step (host clock),"
               f" {B * 3.0 / wall:.1f} audio-s/s; peak mem {peak:.2f} GiB; loss"
               f" {float(metrics['loss']):.4f} [{card}]")
@@ -2738,23 +2826,33 @@ def dp_inputs(np, torch, fx):
     asv = [(torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(np.float32)),
             torch.from_numpy(rng.integers(0, ASV_HEAD, 128))) for _ in range(DP_STEPS)]
     return {"chain": {"batch": (wav, graphs, frames), "warm": warm, "den_fst": fx["den_fst"]},
-            "asv": asv, "gan": gan_batch(np, torch, DP_GAN_BATCH, "cpu")}
+            "asv": asv, "gan": gan_batch(np, torch, DP_GAN_BATCH, "cpu"), "fx": fx}
 
 
-def dp_run(torch, inp, rank: int, world: int):
-    """DP_STEPS steps of each trainer at full width on cuda:0 on this rank's
-    block of each global batch (all of it for one rank): the chain trainer
-    (TDNN-F 1024 + VQ-48, NG on, 1641-state den graph; the network in f64,
-    the objective in f32 as always), the ECAPA-512 judge's and the GAN's
-    (at B=DP_GAN_BATCH) in f64. In f32 the steps are ill-conditioned: the
-    train-mode batch norms amplify rounding to 1e-4 of a gradient, the
-    random generator's near-silent output puts the mel loss's log on tiny
-    bins (the generator's gradients then part by 2.7e-2 of a tensor's
-    largest between a batch of 32 and two of 16, whose cuDNN algorithms
-    differ), and Adam's first update is the gradient's sign; the CPU tests
-    run f64 for the same reason. An f64 GAN at B=32 would not fit beside
-    its ranks. Returns per trainer the losses, the final state (rank 0;
-    other ranks its per-tensor sums) and the kernels' launches."""
+def tensor_digest(t) -> str:
+    """A digest of a CPU tensor's bytes: equal digests, equal bits."""
+    import hashlib
+
+    return hashlib.sha1(t.contiguous().numpy().tobytes()).hexdigest() + str(t.dtype)
+
+
+def dp_run(torch, inp, rank: int, world: int, trainers=("chain", "asv", "gan"),
+           chain_dtype: str = "float64"):
+    """DP_STEPS steps of each of ``trainers`` at full width on the current
+    card on this rank's block of each global batch (all of it for one
+    rank): the chain trainer (TDNN-F 1024 + VQ-48, NG on, 1641-state den
+    graph; the network in ``chain_dtype``, the objective in f32 as always),
+    the ECAPA-512 judge's and the GAN's (at B=DP_GAN_BATCH) in f64. In f32
+    the steps are ill-conditioned: the train-mode batch norms amplify
+    rounding to 1e-4 of a gradient, the random generator's near-silent
+    output puts the mel loss's log on tiny bins (the generator's gradients
+    then part by 2.7e-2 of a tensor's largest between a batch of 32 and two
+    of 16, whose cuDNN algorithms differ), and Adam's first update is the
+    gradient's sign; the CPU tests run f64 for the same reason. An f64 GAN
+    at B=32 would not fit beside its ranks. Returns per trainer the losses,
+    the final state (rank 0; other ranks its per-tensor digests) and, for
+    the chain, the kernels' launches and each step's gradients (after NG and
+    clipping), state and NG eigenvalues (d, rho of every side)."""
     from satpu_torch import infer_helper
     from satpu_torch.chain import den_fb
     from satpu_torch.chain.fst import Fst
@@ -2771,67 +2869,199 @@ def dp_run(torch, inp, rank: int, world: int):
         state = {k: v.detach().cpu() for k, v in state.items()}
         if rank == 0:
             return state
-        return {k: float(v.double().sum()) for k, v in state.items()}
+        return {k: tensor_digest(v) for k, v in state.items()}
 
     out = {}
-    model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
-    model.load_state_dict({**model.state_dict(),
-                           **{k: v.cuda() for k, v in inp["chain"]["warm"].items()}})
-    model.double()
-    trainer = ChainTrainer(model, DenominatorGraph.from_fst(Fst.read(inp["chain"]["den_fst"]),
-                                                            NUM_PDFS),
-                           lr_schedule=lambda step: 1e-3)
-    wav, graphs, frames = inp["chain"]["batch"]
-    den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
-    loss = [float(trainer.step(rows(wav).double(), {k: rows(v) for k, v in graphs.items()},
-                               rows(frames))["loss"]) for _ in range(DP_STEPS)]
-    out["chain"] = {"loss": loss, "state": keep(model.state_dict()),
-                    "launches": {"den_fb_forward": den_fb.den_fb_forward.launches,
-                                 "den_fb_backward": den_fb.den_fb_backward.launches}}
-    del trainer, model
-    torch.cuda.empty_cache()
+    if "chain" in trainers:
+        dt = getattr(torch, chain_dtype)
+        model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+        model.load_state_dict({**model.state_dict(),
+                               **{k: v.cuda() for k, v in inp["chain"]["warm"].items()}})
+        model.to(dt)
+        trainer = ChainTrainer(model, DenominatorGraph.from_fst(
+            Fst.read(inp["chain"]["den_fst"]), NUM_PDFS), lr_schedule=lambda step: DP_LR)
+        wav, graphs, frames = inp["chain"]["batch"]
+        den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+        loss, steps = [], []
+        for _ in range(DP_STEPS):
+            loss.append(float(trainer.step(rows(wav).to(dt), {k: rows(v) for k, v in
+                                                              graphs.items()},
+                                           rows(frames))["loss"]))
+            steps.append({
+                "grad": keep({n: p.grad for n, p in model.named_parameters()
+                              if p.grad is not None}),
+                "state": keep(model.state_dict()),
+                "ng": keep({f"{n}.{side}.{k}": st[k] for n, sides in trainer.ng_states.items()
+                            for side, st in sides.items() for k in ("d", "rho")})})
+        out["chain"] = {"loss": loss, "state": steps[-1]["state"], "steps": steps,
+                        "launches": {"den_fb_forward": den_fb.den_fb_forward.launches,
+                                     "den_fb_backward": den_fb.den_fb_backward.launches}}
+        del trainer, model
+        torch.cuda.empty_cache()
 
-    model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
-                                     num_speakers=ASV_HEAD).double()
-    trainer = AsvTrainer(model, make_asv_optimizer(model))
-    gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
-    loss = [float(trainer.train_step(rows(w).double(), rows(t), gen)["loss"])
-            for w, t in inp["asv"]]
-    out["asv"] = {"loss": loss, "state": keep(model.state_dict())}
-    del trainer, model
-    torch.cuda.empty_cache()
+    if "asv" in trainers:
+        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                         num_speakers=ASV_HEAD).double()
+        trainer = AsvTrainer(model, make_asv_optimizer(model))
+        gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
+        loss = [float(trainer.train_step(rows(w).double(), rows(t), gen)["loss"])
+                for w, t in inp["asv"]]
+        out["asv"] = {"loss": loss, "state": keep(model.state_dict())}
+        del trainer, model
+        torch.cuda.empty_cache()
 
-    model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
-                                     **FLAGSHIP).double()
-    trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
-    trainer.mpd.double(), trainer.msd.double()
-    batch = {k: rows(v).double() for k, v in inp["gan"].items()}
-    loss = []
-    for _ in range(DP_STEPS):
-        m = trainer.train_step(batch)
-        loss += [float(m["loss_gen_all"]), float(m["loss_disc_all"])]
-    state = {k: v for k, v in model.state_dict().items() if k.startswith("hifigan.")}
-    out["gan"] = {"loss": loss, "state": keep({**state, **trainer.discriminator_state_dict()})}
-    del trainer, model, batch
-    torch.cuda.empty_cache()
+    if "gan" in trainers:
+        model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
+                                         **FLAGSHIP).double()
+        trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
+        trainer.mpd.double(), trainer.msd.double()
+        batch = {k: rows(v).double() for k, v in inp["gan"].items()}
+        loss = []
+        for _ in range(DP_STEPS):
+            m = trainer.train_step(batch)
+            loss += [float(m["loss_gen_all"]), float(m["loss_disc_all"])]
+        state = {k: v for k, v in model.state_dict().items() if k.startswith("hifigan.")}
+        out["gan"] = {"loss": loss,
+                      "state": keep({**state, **trainer.discriminator_state_dict()})}
+        del trainer, model, batch
+        torch.cuda.empty_cache()
     return out
 
 
-def dp_worker(rank: int, world: int, port: int, inputs: str, result: str) -> int:
-    """One gloo rank of the dp-train phase on cuda:0 (``--dp-worker``)."""
+def dp_worker(rank: int, world: int, port: int, inputs: str, result: str,
+              backend: str = "gloo", parts: str = "chain,asv,gan",
+              chain_dtype: str = "float64") -> int:
+    """One rank of a data-parallel check (``--dp-worker``): ``dp_run`` of
+    the trainers among ``parts`` on this rank's blocks, then, with "speed"
+    among them, each trainer's f32 step in the group (``dp_speed``). Backend
+    "gloo" is a gloo rank on cuda:0 (the dp-train phase), "gloo-cards" a
+    gloo rank on cuda:<rank>, "nccl" an NCCL rank on cuda:<rank> (the
+    multi-card run); "none" is one card without a group: ``dp_speed``
+    alone, in a process as fresh as the ranks'."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
-                            rank=rank)
+    torch.cuda.set_device(0 if backend == "gloo" else rank)
+    inp = torch.load(inputs, weights_only=False)
+    parts = parts.split(",")
+    if backend == "none":
+        torch.save({"speed": dp_speed(np, torch, inp["fx"])}, result)
+        return 0
+    dist.init_process_group("gloo" if backend.startswith("gloo") else backend,
+                            init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
     try:
-        torch.save(dp_run(torch, torch.load(inputs, weights_only=False), rank, world), result)
+        out = dp_run(torch, inp, rank, world, [p for p in parts if p != "speed"], chain_dtype)
+        if "speed" in parts:
+            out["speed"] = dp_speed(np, torch, inp["fx"])
+        torch.save(out, result)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def tensor_departures(got, want):
+    """[(relative L2, name)] of every float tensor of ``want`` against
+    ``got``'s, worst first."""
+    return sorted(((float((got[k].double() - v.double()).norm()
+                          / max(float(v.double().norm()), 1e-30)), k)
+                   for k, v in want.items() if v.is_floating_point()), reverse=True)
+
+
+def chain_stages(got, want) -> str:
+    """Where two chain runs of ``dp_run`` part, step by step: the worst
+    tensor of the gradients (after NG and clipping), of the NG eigenvalues
+    (d, rho) and of the state; for the state's, how many entries part by
+    more than half a learning rate (Adam's first update is lr x the
+    gradient's sign) and the largest gap."""
+    out = []
+    for k, (g, w) in enumerate(zip(got["steps"], want["steps"]), 1):
+        grad, ng, state = (tensor_departures(g[x], w[x])[0] for x in ("grad", "ng", "state"))
+        gap = (g["state"][state[1]].double() - w["state"][state[1]].double()).abs()
+        out.append(f"step {k}: gradient {grad[0]:.3e} ({grad[1]}), NG d/rho {ng[0]:.3e}"
+                   f" ({ng[1]}), state {state[0]:.3e} ({state[1]}: {int((gap > DP_LR / 2).sum())}"
+                   f" of {gap.numel()} entries apart by more than lr/2, largest"
+                   f" {float(gap.max()):.3e})")
+    return "; ".join(out)
+
+
+def dp_compare(torch, ranks, ref, label: str):
+    """Each trainer of the ranks' ``dp_run`` against one process's
+    (``ref``): losses rel 1e-5, every tensor of the state rel 1e-4 in
+    relative L2 (the relative L2 over all of them printed beside), every
+    other rank's per-tensor digests rank 0's; for the chain, where the runs
+    part (``chain_stages``). Prints a line a trainer; returns the lines
+    that failed."""
+    failed = []
+    for name in [t for t in ("chain", "asv", "gan") if t in ref]:
+        got, want = ranks[0][name], ref[name]
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["loss"], want["loss"]))
+        worst = tensor_departures(got["state"], want["state"])
+        bad = sum(e > 1e-4 for e, _ in worst)
+        same = all(r[name]["state"][k] == tensor_digest(v)
+                   for r in ranks[1:] for k, v in got["state"].items())
+        line = (f"{label}, {name}: losses rel {loss_err:.3e}, worst tensor {worst[0][0]:.3e}"
+                f" ({worst[0][1]}; {bad} of {len(worst)} tensors above 1e-4), state rel L2"
+                f" {rel_l2(torch, got['state'], want['state']):.3e}, other ranks = rank 0:"
+                f" {same}")
+        print(line)
+        if name == "chain":
+            print(f"{label}, chain by step: {chain_stages(got, want)}")
+        if not (same and loss_err <= 1e-5 and bad == 0):
+            failed.append(line)
+    return failed
+
+
+def dp_workers(torch, inputs: str, n: int, backend: str, parts: str = "chain,asv,gan",
+               chain_dtype: str = "float64"):
+    """``n`` ``--dp-worker`` processes of ``backend`` on ``inputs`` (killed
+    at 600 s); returns each one's result."""
+    port = free_port()
+    results = [os.path.join(WORK, f"dp_{backend}{r}.pt") for r in range(n)]
+    # the host's cores shared out: n processes of a thread a core each thrash
+    env = dict(child_env(), OMP_NUM_THREADS=str(max(1, (os.cpu_count() or n) // n)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+                               str(n), str(port), inputs, results[r], backend, parts,
+                               chain_dtype], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{backend} worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    return [torch.load(r, weights_only=False) for r in results]
+
+
+def dp_speed(np, torch, fx):
+    """Each trainer's f32 step (``step_setups``) on the current card, in the
+    process group if one is up, over three times the setup's timed steps:
+    {name: {"ms": [host ms of each step], "sync": {range: (host ms, device
+    ms)}, "audio": audio-s a step on this card}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (setup, prefix, phases, sync, iters, audio) in step_setups(np, torch, fx).items():
+        step = setup()
+        first_losses(step)  # warm-up (the chain's first is an NG subspace update)
+        ms = timed_steps(torch, step, 3 * iters)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        host, dev = train_split(prof, 1, prefix=prefix, phases=phases)
+        out[name] = {"ms": ms, "sync": {s: (host[s], dev[s]) for s in sync}, "audio": audio,
+                     "prefix": prefix}
+        del step, prof
+        torch.cuda.empty_cache()
+    return out
 
 
 def rel_l2(torch, got, want) -> float:
@@ -2841,26 +3071,12 @@ def rel_l2(torch, got, want) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def phase_dp_train(np, torch, card, fx):
-    """Data-parallel training on the card (one H100: NCCL refuses two ranks on
-    one device). (a) the three training CLIs under ``torch.distributed.run
-    --nproc-per-node 1`` over NCCL with the earlier phases' arguments: their
-    logged losses against those no-group runs'; each trainer's step in this
-    process without and with a one-rank NCCL group (ms per step, and the
-    group's ``*.sync`` / ``*_sync`` ranges in a profile). (b) two gloo ranks
-    on cuda:0 with CUDA tensors, each on half of every global batch, against
-    one rank on the global batches (TF32 off, DP_STEPS steps; the chain and
-    ECAPA and GAN networks in f64, the GAN at B=DP_GAN_BATCH, ``dp_run``):
-    losses rel 1e-5, parameters and batch-norm / VQ buffers rel 1e-4 in
-    relative L2 over the trainer's tensors, rank 1 equal to rank 0,
-    K2f/K2b launched every chain step. gloo stages CUDA tensors through the host:
-    (b) checks correctness, not speed. Returns the ranks' den kernel
-    launches."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
-
+def step_setups(np, torch, fx):
+    """Each trainer's f32 step at full width from seed 0 on the current card,
+    at the batch a card takes in the dp-train timings: {name: (setup,
+    profiler prefix, phases, sync ranges, timed steps, audio-s a step)};
+    ``setup()`` builds the model and trainer (in the process group, if one
+    is up) and returns the step."""
     from satpu_torch import infer_helper
     from satpu_torch.chain.fst import Fst
     from satpu_torch.chain.objf import DenominatorGraph
@@ -2871,10 +3087,77 @@ def phase_dp_train(np, torch, card, fx):
     from satpu_torch.sidekit.trainer import PHASES as ASV_PHASES
     from satpu_torch.sidekit.trainer import AsvTrainer, make_asv_optimizer
 
-    torch.cuda.empty_cache()
-    # (a) the CLIs, one rank over NCCL, against the earlier phases' no-group runs
+    fx_den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
+    rng = np.random.default_rng(3)
+    asv_batch = (torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(
+        np.float32)).cuda(), torch.from_numpy(rng.integers(0, ASV_HEAD, 128)).cuda())
+
+    def chain_setup():
+        model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+        trainer = ChainTrainer(model, fx_den, lr_schedule=lambda step: 1e-3)
+        batch = chain_batch(torch, fx, 16, "cuda")
+        return lambda: trainer.step(*batch)
+
+    def asv_setup():
+        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
+                                         num_speakers=ASV_HEAD)
+        trainer = AsvTrainer(model, make_asv_optimizer(model))
+        gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
+        return lambda: trainer.train_step(*asv_batch, gen)
+
+    def gan_setup():
+        model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
+                                         **FLAGSHIP)
+        trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
+        batch = gan_batch(np, torch, 32, "cuda")
+        return lambda: trainer.train_step(batch)
+
+    return {
+        "train_asr tdnnf_vq B=16 x 3 s": (chain_setup, "chain.", CHAIN_PHASES, ("sync",), 3,
+                                          16 * EG_SECONDS),
+        "train_asv ECAPA-512 B=128 x 3 s": (asv_setup, "asv.", ASV_PHASES, ("sync",), 3,
+                                            128 * 3.0),
+        "train_vc hifigan B=32": (gan_setup, "gan.", GAN_PHASES, ("d_sync", "g_sync"), 2,
+                                  32 * GAN_SEGMENT / SR)}
+
+
+def timed_step(torch, step, iters: int) -> float:
+    """Host-clock milliseconds a step over ``iters`` steps, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def timed_steps(torch, step, iters: int):
+    """Host-clock milliseconds of each of ``iters`` steps, each synchronized."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def first_losses(step, n=DP_STEPS):
+    """The losses of the next ``n`` steps (the GAN's generator loss)."""
+    out = []
+    for _ in range(n):
+        m = step()
+        out.append(float(m["loss_gen_all"] if "loss_gen_all" in m else m["loss"]))
+    return out
+
+
+def train_clis(fx):
+    """The training CLIs' arguments of the train, asv and gan phases (their
+    runs in WORK/<root>/exp): {name: (arguments but --dirname, root, logged
+    keys held against another run's)}."""
     chain, asv, gan = (os.path.join(WORK, d) for d in ("chain", "asv", "gan"))
-    clis = {
+    return {
         "train_asr": (["--train-set", fx["data"], "--fst-scp", fx["fst_scp"], "--valid-set",
                        fx["valid"], "--valid-fst-scp", fx["valid_fst_scp"], "--den-fst",
                        fx["den_fst"], "--num-pdfs", str(NUM_PDFS), "--model", "tdnnf_vq",
@@ -2888,14 +3171,98 @@ def phase_dp_train(np, torch, card, fx):
                       "--asrbn-checkpoint", os.path.join(gan, "asrbn.pt"),
                       "--training-epochs", "1"], gan, ("val_mel_error",)),
     }
+
+
+def torchrun_cli(name: str, args, nproc: int, counts=None):
+    """``python -m torch.distributed.run --nproc-per-node <nproc>`` of the
+    ``satpu_torch.bin.<name>`` CLI (NCCL, rank r on cuda:r), killed at 600
+    s. With a ``counts`` dir each rank runs through this file's
+    ``--cli-rank`` entry, which writes its kernels' launches and its card
+    there. Returns (wall s with the process start, [each rank's counts])."""
+    target = ([os.path.abspath(__file__), "--cli-rank", name, counts] if counts
+              else ["-m", f"satpu_torch.bin.{name}"])
+    t0 = time.perf_counter()
+    run_child([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+               "--master-addr", "localhost", "--master-port", str(free_port()), *target,
+               *args], 600, f"torchrun --nproc-per-node {nproc} {name}", child_env())
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(nproc if counts else 0):
+        with open(os.path.join(counts, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return wall, ranks
+
+
+def cli_rank(name: str, counts: str, args) -> int:
+    """One rank of ``torchrun_cli`` (``--cli-rank``): the CLI's ``main``,
+    then this rank's kernel launches and current card into
+    ``counts/rank<RANK>.json``."""
+    import importlib
+
+    import torch
+
+    from satpu_torch.chain import den_fb
+    from satpu_torch.ops import yaapt as Y
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rc = importlib.import_module(f"satpu_torch.bin.{name}").main(args)
+    os.makedirs(counts, exist_ok=True)
+    with open(os.path.join(counts, f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump({"card": torch.cuda.current_device(), "shc_band": Y.shc_band.launches,
+                   "den_fb_forward": den_fb.den_fb_forward.launches,
+                   "den_fb_backward": den_fb.den_fb_backward.launches}, f)
+    return rc
+
+
+def logged_departure(np, root: str, ref: str, got: str, keys, name: str):
+    """(lines, largest relative departure of the ``keys``, [(step, key,
+    relative departure)]) between two runs' metrics.jsonl under ``root``;
+    fails unless they logged the same steps and finite values."""
+    logged = []
+    for d in (ref, got):
+        with open(os.path.join(root, d, "metrics.jsonl")) as f:
+            logged.append([json.loads(x) for x in f])
+    want, have = logged
+    check([r["step"] for r in have] == [r["step"] for r in want] and want,
+          f"{name}: {got} logged other steps than {ref}")
+    check(all(np.isfinite(g[k]) for g in have for k in keys if k in g),
+          f"{name}: {got} logged a value that is not finite")
+    rels = [(r["step"], k, abs(g[k] - r[k]) / max(abs(r[k]), 1e-30))
+            for g, r in zip(have, want) for k in keys if k in r]
+    return len(have), max(e for *_, e in rels), rels
+
+
+def phase_dp_train(np, torch, card, fx):
+    """Data-parallel training on the card (one H100: NCCL refuses two ranks on
+    one device). (a) the three training CLIs under ``torch.distributed.run
+    --nproc-per-node 1`` over NCCL with the earlier phases' arguments: their
+    logged losses against those no-group runs'; each trainer's step in this
+    process without and with a one-rank NCCL group (ms per step, and the
+    group's ``*.sync`` / ``*_sync`` ranges in a profile). (b) two gloo ranks
+    on cuda:0 with CUDA tensors, each on half of every global batch, against
+    one rank on the global batches (TF32 off, DP_STEPS steps; the chain and
+    ECAPA and GAN networks in f64, the GAN at B=DP_GAN_BATCH, ``dp_run``):
+    losses rel 1e-5, every parameter and batch-norm / VQ buffer rel 1e-4 in
+    relative L2, rank 1 equal to rank 0,
+    K2f/K2b launched every chain step. gloo stages CUDA tensors through the host:
+    (b) checks correctness, not speed. Returns the ranks' den kernel
+    launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+
+    torch.cuda.empty_cache()
+    # (a) the CLIs, one rank over NCCL, against the earlier phases' no-group runs
+    gan = os.path.join(WORK, "gan")
+    clis = train_clis(fx)
+
     def torchrun(name):
         args, root, _ = clis[name]
-        t0 = time.perf_counter()
-        run_child([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
-                   "--master-addr", "localhost", "--master-port", str(free_port()), "-m",
-                   f"satpu_torch.bin.{name}", *args, "--dirname", os.path.join(root, "exp_dp")],
-                  600, f"torchrun {name}", child_env())
-        return time.perf_counter() - t0
+        return torchrun_cli(name, args + ["--dirname", os.path.join(root, "exp_dp")], 1)[0]
 
     # the three side by side (peaks of ~2, 29 and 37 GiB)
     with ThreadPoolExecutor(3) as pool:
@@ -2923,72 +3290,18 @@ def phase_dp_train(np, torch, card, fx):
     check(logged["exp_repeat"] == logged["exp"] and same,
           "train_vc does not repeat bit for bit without a group")
     for name, (args, root, keys) in clis.items():
-        wall = walls[name]
-        logged = []
-        for d in ("exp", "exp_dp"):
-            with open(os.path.join(root, d, "metrics.jsonl")) as f:
-                logged.append([json.loads(x) for x in f])
-        ref, got = logged
-        check([r["step"] for r in got] == [r["step"] for r in ref] and ref,
-              f"{name}: the one-rank run logged other steps")
-        worst = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-30)
-                    for g, r in zip(got, ref) for k in keys if k in r)
-        check(all(np.isfinite(g[k]) for g in got for k in keys if k in g),
-              f"{name}: the one-rank run logged a value that is not finite")
-        print(f"[dp-train] torchrun --nproc-per-node 1 (NCCL) {name}: {len(got)} logged"
+        n_logged, worst, _ = logged_departure(np, root, "exp", "exp_dp", keys, name)
+        print(f"[dp-train] torchrun --nproc-per-node 1 (NCCL) {name}: {n_logged} logged"
               f" {'/'.join(keys)} values within rel {worst:.3e} of the no-group run's"
-              f" ({wall:.1f} s with the process start; the three CLIs side by side)")
+              f" ({walls[name]:.1f} s with the process start; the three CLIs side by side)")
         check(worst <= 1e-3, f"{name}: the one-rank NCCL run departs by {worst:.3e}")
 
     # (a) each trainer's step in this process, without and with a one-rank NCCL group
-    fx_den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
-    rng = np.random.default_rng(3)
-    asv_batch = (torch.from_numpy((rng.standard_normal((128, 3 * SR)) * 0.1).astype(
-        np.float32)).cuda(), torch.from_numpy(rng.integers(0, ASV_HEAD, 128)).cuda())
-
-    def chain_setup():
-        model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
-        trainer = ChainTrainer(model, fx_den, lr_schedule=lambda step: 1e-3)
-        batch = chain_batch(torch, fx, 16, "cuda")
-        return lambda: trainer.step(*batch)
-
-    def asv_setup():
-        model = infer_helper.build_model("asv_xvector", device="cuda", seed=0,
-                                         num_speakers=ASV_HEAD)
-        trainer = AsvTrainer(model, make_asv_optimizer(model))
-        gen = torch.Generator(device="cuda").manual_seed(0)  # the SpecAugment draws
-        return lambda: trainer.train_step(*asv_batch, gen)
-
-    def gan_setup():
-        model = infer_helper.build_model("anonymizer_tdnnf_hifigan", device="cuda", seed=0,
-                                         **FLAGSHIP)
-        trainer = GanTrainer(model, GanHparams(segment_size=GAN_SEGMENT))
-        batch = gan_batch(np, torch, 32, "cuda")
-        return lambda: trainer.train_step(batch)
-
-    def timed(step, iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / iters * 1e3
-
-    def first_losses(step, n=DP_STEPS):
-        out = []
-        for _ in range(n):
-            m = step()
-            out.append(float(m["loss_gen_all"] if "loss_gen_all" in m else m["loss"]))
-        return out
-
-    for name, setup, prefix, phases, sync, iters in (
-            ("train_asr tdnnf_vq B=16 x 3 s", chain_setup, "chain.", CHAIN_PHASES, ("sync",), 3),
-            ("train_asv ECAPA-512 B=128 x 3 s", asv_setup, "asv.", ASV_PHASES, ("sync",), 3),
-            ("train_vc hifigan B=32", gan_setup, "gan.", GAN_PHASES, ("d_sync", "g_sync"), 2)):
+    for name, (setup, prefix, phases, sync, iters, _) in step_setups(np, torch, fx).items():
         # the same first steps from the same seed without and with a group
         step = setup()
         plain_loss = first_losses(step)
-        plain = timed(step, iters)
+        plain = timed_step(torch, step, iters)
         del step
         torch.cuda.empty_cache()
         dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
@@ -2996,7 +3309,7 @@ def phase_dp_train(np, torch, card, fx):
         try:
             step = setup()
             group_loss = first_losses(step)
-            grouped = timed(step, iters)
+            grouped = timed_step(torch, step, iters)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 step()
                 torch.cuda.synchronize()
@@ -3019,50 +3332,13 @@ def phase_dp_train(np, torch, card, fx):
     path = os.path.join(WORK, "dp_inputs.pt")
     torch.save(inp, path)
     torch.cuda.empty_cache()
-    port = free_port()
-    results = [os.path.join(WORK, f"dp_rank{r}.pt") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
-                               "2", str(port), path, results[r]], cwd=ROOT, env=child_env(),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
     t0 = time.perf_counter()
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=900)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    ranks = dp_workers(torch, path, 2, "gloo")
     wall = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        check(p.returncode == 0, f"dp rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
-    ranks = [torch.load(r, weights_only=False) for r in results]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
-                            world_size=1, rank=0)
-    try:
-        ref = dp_run(torch, inp, 0, 1)
-    finally:
-        dist.destroy_process_group()
+    ref = one_process(torch, inp)
     print(f"[dp-train] the one-rank reference took {time.perf_counter() - t0 - wall:.1f} s")
     launches = {"den_fb_forward": 0, "den_fb_backward": 0}
-    failed = []
-    for name in ("chain", "asv", "gan"):
-        got, want = ranks[0][name], ref[name]
-        loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["loss"], want["loss"]))
-        state_err = rel_l2(torch, got["state"], want["state"])
-        worst = max(((got["state"][k].double() - v.double()).norm()
-                     / max(float(v.double().norm()), 1e-30), k)
-                    for k, v in want["state"].items() if v.is_floating_point())
-        same = all(ranks[1][name]["state"][k] == float(v.double().sum())
-                   for k, v in got["state"].items())
-        line = (f"[dp-train] 2 gloo ranks on cuda:0 vs 1 rank, {name}: losses rel {loss_err:.3e},"
-                f" state rel L2 {state_err:.3e} (worst tensor {float(worst[0]):.3e} {worst[1]})")
-        ok = same and loss_err <= 1e-5 and state_err <= 1e-4
-        print(line + f", rank 1 = rank 0: {same}")
-        if not ok:
-            failed.append(line)
+    failed = dp_compare(torch, ranks, ref, "[dp-train] 2 gloo ranks on cuda:0 vs 1 rank")
     check(not failed, "dp: " + "; ".join(failed))
     for r in range(2):
         n = ranks[r]["chain"]["launches"]
@@ -3516,15 +3792,641 @@ def phase_surface(np, torch, card, paths, ckpt):
           and differ > 0, "hub.load(load_weight=False) built another model, or the file's")
 
 
+# ---- the multi-card run (``--cards N``): satpu's dryrun_multichip on N cards ----
+
+
+@contextlib.contextmanager
+def kernel_cards(torch):
+    """Within the block a profiler traces every card; after it, the list
+    yielded holds the card of each launch of K1, K2f or K2b, in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield seen
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
+    seen += [e.device_index for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in ("shc_band_kernel", "den_fwd", "den_bwd"))]
+
+
+def phase_cards_kernels(np, torch, n: int):
+    """K1 and K2f/K2b on each of cuda:0..n-1 with the next card current (the
+    launch must follow its tensors, not the current device): K1 at F = 8000
+    (16 utterances of 10 s, the flagship geometry) and at a generic geometry,
+    K2f/K2b at B=16, T=99 over the 1641-state den graph; each against its
+    plain version on that card at the kernel phases' bounds (SHC rel 1e-5,
+    den value rel 1e-5, gradients 1e-4 abs), two calls bitwise equal, one
+    launch a call on the tensors' card in a profiler trace; then timed on
+    each card (CUDA events with the card current). Returns {card: (K1, K2f,
+    K2b) us a call}."""
+    import torch.nn.functional as F
+
+    from satpu_torch.chain import den_fb
+    from satpu_torch.models.anonymizer import YAAPT_OPTS
+    from satpu_torch.ops import yaapt as Y
+
+    p = Y._merged_params(YAAPT_OPTS)
+    to_pad, frame_size, frame_jump, nfft = Y.frame_geometry(p)
+    g = Y.shc_params(nfft, p)
+    flagship = (g["min_shc"], g["n_out"], g["n_harm"], g["window_length"])
+    M = g["top_bin"] + g["half_window"]
+    generic = (20, 100, 3, 9)  # min_shc, n_out, n_harm, window: the <0, 0> instantiation
+    x = np.stack([voiced_utterance(np, 10.0, 100.0 + 10 * k, seed=k)[0] for k in range(16)])
+    xp = F.pad(torch.from_numpy(x).cuda(0), (to_pad, to_pad))
+    nl = Y.bandpass(xp ** 2, p["sr"], p["bp_low"], p["bp_high"])
+    real16 = Y.shc_magnitude(nl, Y.num_frames(x.shape[1], p), frame_size, frame_jump, nfft,
+                             p).cpu()
+    rand = torch.from_numpy(np.random.default_rng(6).random((4000, M), np.float32))
+    den = den_graph()
+    B, T = 16, EG_FRAMES
+    ll = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, T, NUM_PDFS)).astype(np.float32) * 2)
+    lk = den_fb.leak_log(1e-5)
+    times = {}
+    for k in range(n):
+        dev, other = torch.device("cuda", k), (k + 1) % n
+        torch.cuda.set_device(other)
+        for geometry, args, mag in (("flagship", flagship, real16.to(dev)),
+                                    ("generic", generic, rand.to(dev))):
+            n0 = Y.shc_band.launches
+            out, again = Y.shc_band(mag, *args), Y.shc_band(mag, *args)
+            calls = Y.shc_band.launches - n0
+            ref = Y.shc_band_plain(mag, *args)
+            rel = (out - ref).abs().max().item() / ref.abs().max().item()
+            same = bool(torch.equal(out, again))
+            with kernel_cards(torch) as cards:
+                Y.shc_band(mag, *args)
+            print(f"[cards] K1 {geometry} mag [{mag.shape[0]} x {M}] on cuda:{k}, cuda:{other}"
+                  f" current ({Y.shc_band.instantiation} instantiation): rel {rel:.3e}"
+                  f" (tolerance 1e-5), two calls bitwise {same}, {calls} wrapper counts for 2"
+                  f" calls, a call's kernels in the trace on cards {cards}")
+            check(out.device == dev and rel <= 1e-5 and same and calls == 2 and cards == [k],
+                  f"K1 {geometry} on cuda:{k} with cuda:{other} current")
+        g_k = den.tensors(dev)
+        _, _, llf, lls, alphas = den_check(torch, den_fb, g_k, ll.to(dev), lk,
+                                           f"cuda:{k}, cuda:{other} current,")
+        graph = (g_k["A"], g_k["log_self"], g_k["log_init"], lk, g_k["A_sparse"])
+        a0 = g_k["start"].expand(B, den.num_states).contiguous()
+        a_T = alphas[-1].clone().requires_grad_(True)
+        den_fb.final_value(a_T, g_k["final"], g_k["log_init"], lk).sum().backward()
+        g_final = a_T.grad
+        with kernel_cards(torch) as fwd:
+            den_fb.den_fb_forward(llf, lls, a0, *graph)
+        with kernel_cards(torch) as bwd:
+            den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph)
+        cards = (fwd, bwd)
+        print(f"[cards] K2f / K2b on cuda:{k}, cuda:{other} current: a call's kernels in the"
+              f" trace on cards {cards[0]} / {cards[1]}")
+        check(cards == ([k], [k]), f"K2 on cuda:{k}: kernels on cards {cards}")
+        with torch.cuda.device(dev):
+            # K1 on random inputs that do not stay in the 50 MB L2 (phase 2's timing)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            bufs = [torch.rand(real16.shape, generator=gen, device=dev)
+                    for _ in range(-(-150_000_000 // real16.nbytes))]
+            it = iter(range(1 << 30))
+            shc_ms = cuda_ms(torch, lambda: Y.shc_band(bufs[next(it) % len(bufs)], *flagship),
+                             iters=200)
+            del bufs
+            (f_ms, *_), (b_ms, *_) = den_timing(torch, den_fb, g_k, llf, lls, lk)
+        times[k] = (shc_ms * 1e3, f_ms * 1e3, b_ms * 1e3)
+        del g_k, llf, lls, alphas, g_final, graph, a0
+    torch.cuda.set_device(0)
+    card_names = {k: torch.cuda.get_device_name(k) for k in range(n)}
+    for k, (a, b, c) in times.items():
+        print(f"[cards] cuda:{k} ({card_names[k]}): K1 F={real16.shape[0]} {a:.1f} us, K2f"
+              f" B={B} T={T} S={den.num_states} {b:.1f} us, K2b {c:.1f} us a call")
+    return times
+
+
+def gan_global_reference(args, n: int) -> None:
+    """train_vc in this process on the global batches of ``n`` ranks: each
+    step's batch is the ranks' host-local batches concatenated, each rank's
+    crops drawn from a generator of its own in the state a rank's dataset
+    starts in, as many steps an epoch as the ranks take."""
+    import copy
+
+    import numpy as np
+
+    from satpu_torch.bin import train_vc
+    from satpu_torch.hifigan.dataset import HifiGanDataset
+
+    local, steps_per_epoch = HifiGanDataset.batches, train_vc.steps_per_epoch
+    views = {}
+
+    def global_batches(self, batch_size, shuffle=True, epoch=0, process_index=0,
+                       process_count=1):
+        if not shuffle:
+            return local(self, batch_size, shuffle=False)
+        if id(self) not in views:
+            views[id(self)] = [copy.copy(self) for _ in range(n)]
+            for v in views[id(self)]:
+                v.rng = copy.deepcopy(self.rng)
+        parts = [local(v, batch_size // n, True, epoch, k, n)
+                 for k, v in enumerate(views[id(self)])]
+        return ({key: np.concatenate([p[key] for p in ps]) for key in ps[0]}
+                for ps in zip(*parts))
+
+    HifiGanDataset.batches = global_batches
+    train_vc.steps_per_epoch = lambda items, local_bs, world: steps_per_epoch(
+        items, local_bs // n, n)
+    try:
+        rc = train_vc.main(args)
+    finally:
+        HifiGanDataset.batches, train_vc.steps_per_epoch = local, steps_per_epoch
+    check(rc == 0, f"train_vc on {n} ranks' global batches exited {rc}")
+
+
+def ckpt_departure(torch, got: str, want: str):
+    """(relative L2 over every float tensor, (worst tensor's relative L2,
+    its name)) of checkpoint ``got`` against ``want``; fails unless they hold
+    the same tensors and equal integer ones."""
+    from satpu_torch.utils.checkpoint import load_checkpoint
+
+    a, b = load_checkpoint(got)[1], load_checkpoint(want)[1]
+    check(sorted(a) == sorted(b), f"{got} holds other tensors than {want}")
+    check(all(torch.equal(a[k], v) for k, v in b.items() if not v.is_floating_point()),
+          f"{got}: an integer tensor differs from {want}'s")
+    worst = max((float((a[k].double() - v.double()).norm() / max(float(v.double().norm()),
+                                                                    1e-30)), k)
+                for k, v in b.items() if v.is_floating_point())
+    return rel_l2(torch, a, b), worst
+
+
+def one_process(torch, inp, trainers=("chain", "asv", "gan"), chain_dtype="float64",
+                card: int = 0):
+    """``dp_run`` on the global batches in this process on cuda:<card>, in a
+    one-rank gloo group (the ranks' code path)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        with torch.cuda.device(card):
+            return dp_run(torch, inp, 0, 1, trainers, chain_dtype)
+    finally:
+        dist.destroy_process_group()
+
+
+def den_split_check(torch, fx) -> str:
+    """K2f/K2b through ``objf.den_forward`` on a batch of 16 x 99 frames and
+    on its four blocks of 4: whether the values and the loglikes' gradients
+    keep their bits when a batch is split (the kernels' rows are
+    independent)."""
+    from satpu_torch.chain.fst import Fst
+    from satpu_torch.chain.objf import DenominatorGraph, den_forward
+
+    den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ll = (torch.randn((16, EG_FRAMES, NUM_PDFS), generator=gen, device="cuda") * 2
+          ).requires_grad_(True)
+    value = den_forward(ll, den)
+    grad, = torch.autograd.grad(value.sum(), ll)
+    values, grads = [], []
+    for block in ll.detach().split(4):
+        block.requires_grad_(True)
+        v = den_forward(block, den)
+        values.append(v.detach())
+        grads.append(torch.autograd.grad(v.sum(), block)[0])
+    return (f"values bitwise {torch.equal(value.detach(), torch.cat(values))}, gradients bitwise"
+            f" {torch.equal(grad, torch.cat(grads))}")
+
+
+def phase_cards_train(np, torch, card, n: int, fx, parts):
+    """Data parallelism over n NCCL ranks, rank r on cuda:r; ``parts`` picks
+    among f64, speed and clis. f64: ``dp_run`` (the chain, ECAPA-512 and GAN
+    networks in f64, DP_STEPS steps; the GAN at B=DP_GAN_BATCH) against one
+    process on the global batches: losses rel 1e-5, every tensor of the
+    states rel 1e-4, ranks 1..n-1 equal to rank 0, K2f/K2b launched in
+    every chain step of every rank; then, printed and not held, where the
+    chain's runs part from that one process step by step (``chain_stages``)
+    for the n NCCL ranks and for controls that change one thing each: one
+    process again on cuda:0 and on cuda:1, n gloo ranks on cuda:0..n-1 and
+    on cuda:0, and the n NCCL ranks with the network in f32 against one
+    process in f32; and whether the den kernels keep their bits when a batch
+    is split. speed: each trainer's f32 step at the same batch a card
+    without a group and in the n ranks (``dp_speed``): ms a step (the median
+    of the steps and their range), audio-s/s, the sync ranges' split,
+    scaling efficiency. clis: the three training CLIs under
+    ``torch.distributed.run --nproc-per-node n`` with the train, asv and gan
+    phases' arguments, against one process on the same global batches:
+    every logged value and every tensor of the final checkpoints within rel
+    1e-5 (train_asr, train_asv: the one-rank group's bound) and 1e-3
+    (train_vc: fault 5's), each rank's kernel launches on its card. Returns
+    what failed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    failed = []
+    inp = dp_inputs(np, torch, fx)
+    path = os.path.join(WORK, "dp_inputs.pt")
+    torch.save(inp, path)
+    torch.cuda.empty_cache()
+    if "f64" in parts or "speed" in parts:
+        t0 = time.perf_counter()
+        ranks = dp_workers(torch, path, n, "nccl", ",".join(
+            (["chain", "asv", "gan"] if "f64" in parts else [])
+            + (["speed"] if "speed" in parts else [])))
+        print(f"[cards-train] {n} NCCL ranks on cuda:0..{n - 1} took"
+              f" {time.perf_counter() - t0:.1f} s (process start, full-width builds, then"
+              f" {'the f64 steps' if 'f64' in parts else ''}"
+              f"{' and ' if len({'f64', 'speed'} & set(parts)) == 2 else ''}"
+              f"{'the f32 timings' if 'speed' in parts else ''})")
+    if "f64" in parts:
+        t0 = time.perf_counter()
+        ref = one_process(torch, inp)
+        print(f"[cards-train] the one-process reference took {time.perf_counter() - t0:.1f} s")
+        failed += dp_compare(torch, ranks, ref, f"[cards-train] {n} NCCL ranks vs one process,"
+                                                f" f64")
+        per_rank = [r["chain"]["launches"] for r in ranks]
+        print(f"[cards-train] den kernel launches in the {DP_STEPS} chain steps, by rank:"
+              f" {per_rank}")
+        if not all(v >= DP_STEPS for c in per_rank for v in c.values()):
+            failed.append(f"a rank's chain step did not launch K2f/K2b: {per_rank}")
+        t0 = time.perf_counter()
+        controls = (("one process again on cuda:0", lambda: one_process(torch, inp, ("chain",))),
+                    (f"one process on cuda:{min(1, n - 1)}",
+                     lambda: one_process(torch, inp, ("chain",), card=min(1, n - 1))),
+                    (f"{n} gloo ranks on cuda:0..{n - 1}",
+                     lambda: dp_workers(torch, path, n, "gloo-cards", "chain")[0]),
+                    (f"{n} gloo ranks on cuda:0", lambda: dp_workers(torch, path, n, "gloo",
+                                                                     "chain")[0]))
+        for label, run in controls:
+            got, want = run()["chain"], ref["chain"]
+            loss = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+            print(f"[cards-train] control, the chain in f64, {label} vs one process: losses rel"
+                  f" {loss:.3e}; by step: {chain_stages(got, want)}")
+        ranks32 = dp_workers(torch, path, n, "nccl", "chain", "float32")
+        ref32 = one_process(torch, inp, ("chain",), "float32")
+        got, want = ranks32[0]["chain"], ref32["chain"]
+        loss = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+        print(f"[cards-train] control, the chain in f32, {n} NCCL ranks vs one process: losses"
+              f" rel {loss:.3e}; by step: {chain_stages(got, want)}")
+        print(f"[cards-train] den kernels, a batch of 16 against its 4 blocks of 4:"
+              f" {den_split_check(torch, fx)}; the controls took {time.perf_counter() - t0:.1f} s")
+
+    if "speed" in parts:
+        one = dp_workers(torch, path, 1, "none")[0]["speed"]
+        for name, o in one.items():
+            got = [r["speed"][name] for r in ranks]
+            t1, tn = o["ms"], got[0]["ms"]
+            m1, mn = float(np.median(t1)), float(np.median(tn))
+            rate1, raten = o["audio"] / m1 * 1e3, n * o["audio"] / mn * 1e3
+            sync = ", ".join(f"{o['prefix']}{s} {o['sync'][s][0]:.2f} / {o['sync'][s][1]:.2f} vs"
+                             f" {got[0]['sync'][s][0]:.2f} / {got[0]['sync'][s][1]:.2f}"
+                             for s in o["sync"])
+            print(f"[cards-train] {name} a card, f32, TF32 off: one rank without a group"
+                  f" {m1:.1f} ms/step (median of {len(t1)} steps, {min(t1):.1f}-{max(t1):.1f}),"
+                  f" {rate1:.1f} audio-s/s; {n} NCCL ranks {mn:.1f} ms/step (rank 0's median of"
+                  f" {len(tn)}, {min(tn):.1f}-{max(tn):.1f}; the ranks' medians"
+                  f" {', '.join('%.1f' % np.median(g['ms']) for g in got)}), {raten:.1f}"
+                  f" audio-s/s; scaling efficiency {m1 / mn:.3f} (over the steps' range"
+                  f" {min(t1) / max(tn):.3f}-{max(t1) / min(tn):.3f}); sync host / device ms a"
+                  f" step, no group vs rank 0: {sync} [{card}]")
+    if "clis" not in parts:
+        return failed
+
+    clis = train_clis(fx)
+    refs = {"train_asr": ("exp", "final.ckpt"), "train_asv": ("exp", "1.ckpt"),
+            "train_vc": ("exp_global", "g_best.ckpt")}
+    # train_vc's reference (cuda:0), on copies of the data dirs: its
+    # feature caches are its own
+    args, root, _ = clis["train_vc"]
+    for d in ("train", "dev"):
+        shutil.copytree(os.path.join(root, d), os.path.join(root, d + "_global"))
+        args = [a + "_global" if a == os.path.join(root, d) else a for a in args]
+    t0 = time.perf_counter()
+    gan_global_reference(args + ["--dirname", os.path.join(root, "exp_global")], n)
+    print(f"[cards-train] train_vc on the {n} ranks' global batches in one process:"
+          f" {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(3) as pool:  # the three side by side
+        runs = {name: pool.submit(torchrun_cli, name, args + [
+            "--dirname", os.path.join(root, f"exp_{n}ranks")], n,
+            os.path.join(WORK, f"counts_{name}")) for name, (args, root, _) in clis.items()}
+        runs = {name: f.result() for name, f in runs.items()}
+    steps = -(-len(SPEAKERS) // 32)
+    for name, (args, root, keys) in clis.items():
+        wall, counts = runs[name]
+        ref_dir, ckpt = refs[name]
+        n_logged, worst, rels = logged_departure(np, root, ref_dir, f"exp_{n}ranks", keys,
+                                                 name)
+        bound = 1e-3 if name == "train_vc" else 1e-5
+        pairs = [(ckpt, ckpt)] + ([(f"d_{steps}.ckpt", f"d_{steps}.ckpt")]
+                                  if name == "train_vc" else [])
+        deps = [ckpt_departure(torch, os.path.join(root, f"exp_{n}ranks", a),
+                               os.path.join(root, ref_dir, b)) for a, b in pairs]
+        line = (f"[cards-train] torchrun --nproc-per-node {n} (NCCL) {name}: {n_logged} logged"
+                f" {'/'.join(keys)} values within rel {worst:.3e} of one process's on the same"
+                f" global batches (by step: " + ", ".join(f"{step} {k} {e:.3e}"
+                                                          for step, k, e in rels) + "); "
+                + "; ".join(f"{a} rel L2 {d[0]:.3e}, worst tensor {d[1][0]:.3e} ({d[1][1]})"
+                            for (a, _), d in zip(pairs, deps))
+                + f" (bound {bound:g} on every logged value and tensor; {wall:.1f} s with the"
+                f" process start, the three side by side); by rank (card, K1, K2f, K2b"
+                f" launches): " + ", ".join(f"{r} ({c['card']}, {c['shc_band']},"
+                                           f" {c['den_fb_forward']}, {c['den_fb_backward']})"
+                                           for r, c in enumerate(counts)))
+        print(line)
+        if not (worst <= bound and all(d[1][0] <= bound for d in deps)):
+            failed.append(line)
+        if [c["card"] for c in counts] != list(range(n)):
+            failed.append(f"{name}: ranks on cards {[c['card'] for c in counts]}")
+        kernel = {"train_asr": ("den_fb_forward", "den_fb_backward"),
+                  "train_vc": ("shc_band",)}.get(name, ())
+        if not all(c[k] > 0 for c in counts for k in kernel):
+            failed.append(f"{name}: a rank launched none of {kernel}: {counts}")
+    return failed
+
+
+def slice_dir32(np):
+    """32 voiced utterances of 2-4 s (seeded), a kaldi dir for one full
+    batch of B=32 over the cards."""
+    from satpu_torch.utils import kaldi_data
+
+    d = os.path.join(WORK, "data32")
+    os.makedirs(d)
+    wav_scp, utt2spk = {}, {}
+    for k in range(32):
+        utt = f"b{k:02d}"
+        wav_scp[utt] = os.path.join(d, f"{utt}.wav")
+        kaldi_data.write_wav(wav_scp[utt], voiced_utterance(
+            np, 2.0 + 2.0 * k / 31, 95.0 + 5 * k, seed=1000 + k)[0], SR)
+        utt2spk[utt] = f"src{k % 4}"
+    kaldi_data.write_keyed_text(wav_scp, os.path.join(d, "wav.scp"))
+    kaldi_data.write_keyed_text(utt2spk, os.path.join(d, "utt2spk"))
+    return d
+
+
+def phase_cards_serve(np, torch, card, n: int, ckpt):
+    """The serving mesh over n cards. ``anonymize --device cuda:1`` and
+    ``anonymize --serve-mesh true`` over the slice phase's dir (cuda:0
+    current) against the slice phase's one-card run: exit 0, the same
+    utterances, within bf16 serving's rel 2e-2 (on cuda:1 bitwise), K1
+    once a block, on cuda:1 alone or on every card in block order. ``process_data`` of the flagship in f32 at B=32 over 32
+    utterances on cuda:0..n-1 (32 / n rows a card) against cuda:0 alone:
+    every waveform within 1e-6, K1 once a block on its own card. Then the
+    flagship bf16 at B=128 x 10 s split over the n cards against one card
+    at B=128: audio-s/s, the host-clock ms of the cards' get_f0 and convert
+    calls, and each card's device ms of either (a profile). Returns what
+    failed."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from satpu_torch import infer_helper
+    from satpu_torch.bin import anonymize, pipeline
+    from satpu_torch.parallel import mesh
+    from satpu_torch.utils import kaldi_data
+
+    failed = []
+    data = os.path.join(WORK, "data")
+    ref = kaldi_data.read_wav_scp(os.path.join(data + "_anon", "wav.scp"))
+    batches = -(-len(ref) // 8)
+    for suffix, extra, cards in (
+            ("_card1", ["--device", f"cuda:{min(1, n - 1)}"], [min(1, n - 1)] * batches),
+            ("_mesh", ["--serve-mesh", "true"], list(range(n)) * batches)):
+        with kernel_cards(torch) as seen:
+            rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
+                                 "--target-selection-algorithm", "random_per_utt",
+                                 "--new-datadir-suffix", suffix, "--results-dir",
+                                 os.path.join(WORK, "out" + suffix), *extra])
+        check(rc == 0, f"anonymize {' '.join(extra)} exited {rc}")
+        got = kaldi_data.read_wav_scp(os.path.join(data + suffix, "wav.scp"))
+        check(sorted(got) == sorted(ref), f"anonymize {' '.join(extra)} wrote other utterances")
+        wavs = {u: (kaldi_data.load_wav_from_scp(got[u])[0].astype(np.float64),
+                    kaldi_data.load_wav_from_scp(ref[u])[0].astype(np.float64)) for u in ref}
+        rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                  for a, b in wavs.values())
+        bitwise = sum(np.array_equal(a, b) for a, b in wavs.values())
+        line = (f"[cards-serve] anonymize {' '.join(extra)} (cuda:0 current): exit 0, {len(got)}"
+                f" wavs, {bitwise} bitwise the one-card run's, max rel {rel:.3e} (bf16 serving,"
+                f" tolerance 2e-2); K1 launches on cards {seen} (one a block: {cards})")
+        print(line)
+        # on one card the same program on the same kind of card: the same bits
+        if rel > 2e-2 or seen != cards or (suffix == "_card1" and bitwise != len(ref)):
+            failed.append(line)
+
+    d32 = slice_dir32(np)
+    model, meta = infer_helper.load_model(ckpt, device="cuda")
+    devices = [torch.device("cuda", k) for k in range(n)]
+    write = pipeline.kaldi_data.write_wav
+    outs, cards = {}, {}
+    for name, devs in (("one", None), ("mesh", devices)):
+        captured = outs[name] = {}
+
+        def capture(path, x, rate, captured=captured):
+            captured[os.path.basename(path)] = np.array(x)
+            write(path, x, rate)
+
+        pipeline.kaldi_data.write_wav = capture
+        try:
+            with kernel_cards(torch) as seen:
+                pipeline.process_data(model, meta["speakers"], d32,
+                                      os.path.join(WORK, f"mesh32_{name}"),
+                                      target_selection_algorithm="random_per_utt",
+                                      batch_size=32, new_datadir_suffix=f"_{name}",
+                                      devices=devs)
+        finally:
+            pipeline.kaldi_data.write_wav = write
+        cards[name] = seen
+    worst = max(float(np.abs(outs["mesh"][u] - outs["one"][u]).max()) for u in outs["one"])
+    line = (f"[cards-serve] process_data over cuda:0..{n - 1} (the flagship in f32, B=32, {32 // n}"
+            f" rows a card): {len(outs['mesh'])} wavs within {worst:.3e} of cuda:0 alone"
+            f" (tolerance 1e-6); K1 launches on cards {cards['mesh']}, alone {cards['one']}")
+    print(line)
+    if sorted(outs["mesh"]) != sorted(outs["one"]) or worst > 1e-6:
+        failed.append(line)
+    if cards["mesh"] != list(range(n)) or cards["one"] != [0]:
+        failed.append(f"K1 not once a block on its own card: {cards}")
+    del model
+
+    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args(),
+                                       device="cuda")
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+    B, T = 128, 10 * SR
+    gen = torch.Generator().manual_seed(7)
+    wav = torch.randn((B, T), generator=gen) * 0.05
+    tid = torch.arange(B) % len(SPEAKERS)
+    wavs, tids = mesh.split_rows(wav, devices), mesh.split_rows(tid, devices)
+    whole = (wav.cuda(0), tid.cuda(0))
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    def mesh_f0():
+        return [m.get_f0(w) for m, w in zip(replicas, wavs)]
+
+    def mesh_convert(f0s):
+        return [m.convert(w, f, t) for m, w, f, t in zip(replicas, wavs, f0s, tids)]
+
+    def one_batch():
+        return model.convert(whole[0], model.get_f0(whole[0]), whole[1])
+
+    def wall_ms(fn, iters=2):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def card_ms(fn):
+        """Each card's kernel milliseconds in a profile of fn()."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ms = [0.0] * n
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                ms[e.device_index] += e.time_range.elapsed_us() / 1e3
+        return ms
+
+    with torch.inference_mode():
+        one_ms = wall_ms(one_batch)
+        mesh_ms = wall_ms(lambda: mesh_convert(mesh_f0()))
+        f0s = mesh_f0()
+        f0_ms, cv_ms = wall_ms(mesh_f0), wall_ms(lambda: mesh_convert(f0s))
+        f0_dev, cv_dev = card_ms(mesh_f0), card_ms(lambda: mesh_convert(f0s))
+    rate1, raten = B * 10.0 / one_ms * 1e3, B * 10.0 / mesh_ms * 1e3
+    print(f"[cards-serve] flagship bf16 B={B} x 10 s: one card {one_ms:.1f} ms a batch, {rate1:.1f}"
+          f" audio-s/s; split over {n} cards ({B // n} rows a card, one host thread)"
+          f" {mesh_ms:.1f} ms, {raten:.1f} audio-s/s ({raten / rate1:.2f}x); the {n} cards'"
+          f" get_f0 calls {f0_ms:.1f} ms, convert calls {cv_ms:.1f} ms (host clock, synchronized);"
+          f" device ms a card get_f0 / convert (profiled): "
+          + ", ".join(f"cuda:{k} {a:.1f} / {b:.1f}" for k, (a, b) in enumerate(zip(f0_dev, cv_dev)))
+          + f" [{card}]")
+    del replicas, model, wavs, whole
+    torch.cuda.empty_cache()
+    return failed
+
+
+def phase_cards_eval(paths):
+    """``eval_anon --serve-mesh true`` over every card against the one-card
+    run (the eval phase's models and graph, the slice phase's dirs): the
+    same hypotheses and the same ASR and ASV results (WER, EER,
+    linkability, Cllr). Returns what failed."""
+    import numpy as np
+
+    one, _, _, ctm, lls = eval_cli(paths, "cuda", "cards_one")
+    mesh, wall, decodes, ctm_mesh, lls_mesh = eval_cli(paths, "cuda", "cards_mesh",
+                                                       "--serve-mesh", "true")
+    ll_rel = max(float(np.abs(lls_mesh[u] - lls[u]).max() / np.abs(lls[u]).max()) for u in lls)
+    same = ctm_mesh == ctm and mesh == one
+    line = (f"[cards-eval] eval_anon --serve-mesh true over the cards ({wall:.2f} s, {decodes}"
+            f" lattice decodes): hypotheses and results equal the one-card run's: {same} (WER"
+            f" {mesh['asr']['wer']:.2f} vs {one['asr']['wer']:.2f}, EER {mesh['asv']['eer']:.4f}"
+            f" vs {one['asv']['eer']:.4f}, linkability {mesh['asv']['linkability']:.4f}, Cllr"
+            f" {mesh['asv']['cllr']:.6f}); loglikes rel {ll_rel:.3e}")
+    print(line)
+    return [] if same else [line]
+
+
+def phase_cards_export(np, torch, n: int, ckpt):
+    """``hub.export_convert`` of the flagship (bf16 serving) on cuda:1 at
+    B=2 x 2 s, loaded with ``torch.export.load`` and run with cuda:0
+    current: the same bits as the eager convert on cuda:1, K1 launched on
+    cuda:1 (cuda:0 with one card). Returns what failed."""
+    from satpu_torch import hub, infer_helper
+
+    dev = torch.device("cuda", min(1, n - 1))
+    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args(),
+                                       device=dev)
+    model.eval()
+    B, T = 2, 2 * SR
+    path = os.path.join(WORK, "convert_cuda1.pt2")
+    t0 = time.perf_counter()
+    hub.export_convert(model, path, batch=B, num_samples=T)
+    export_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wav = torch.randn((B, T), generator=gen, device=dev) * 0.05
+    tid = torch.arange(B, device=dev)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    prog = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        eager = model.convert(wav, model.get_f0(wav), tid)
+        with kernel_cards(torch) as seen:
+            out = prog(wav, tid)
+    same = out.device == dev and bool(torch.equal(out, eager))
+    line = (f"[cards-export] hub.export_convert of the flagship (bf16 serving) on {dev} at"
+            f" B={B} x {T // SR} s in {export_s:.1f} s, loaded in {load_s:.1f} s and run with"
+            f" cuda:0 current: output on {out.device}, bitwise the eager convert on {dev}:"
+            f" {same} (max abs {float((out.float() - eager.float()).abs().max()):.3e}); K1"
+            f" launches on cards {seen}")
+    print(line)
+    del model, prog
+    torch.cuda.empty_cache()
+    return [] if same and seen == [dev.index] else [line]
+
+
+CARD_PARTS = ("kernels", "f64", "speed", "clis", "serve", "eval", "export")
+
+
+def cards_main(np, torch, n: int, card: str, lap, parts=CARD_PARTS) -> None:
+    """``--cards n``: the kernels on every card, then data-parallel training
+    over n NCCL ranks, the serving mesh over n cards, eval_anon's mesh and
+    the exported anonymizer on cuda:1, after the one-card runs they are held
+    against (the slice, train, asv and eval phases; the gan phase's data).
+    ``parts`` (``--only``) picks among CARD_PARTS. Fails at the end with
+    every comparison that failed."""
+    phase_build()
+    lap("build")
+    if "kernels" in parts:
+        phase_cards_kernels(np, torch, n)
+        lap("kernels on every card")
+    failed = []
+    if set(parts) - {"kernels"}:
+        _, ckpt = phase_slice(np, torch)
+        _, fx = phase_train(np, torch)
+        if "clis" in parts:
+            phase_asv(np, torch, card)
+            gan_dirs(np)
+        lap("the one-card runs and data")
+    if {"f64", "speed", "clis"} & set(parts):
+        failed += phase_cards_train(np, torch, card, n, fx, parts)
+        lap("data-parallel training")
+    if "serve" in parts:
+        failed += phase_cards_serve(np, torch, card, n, ckpt)
+        lap("serving mesh")
+    if "eval" in parts:
+        _, paths, _, _ = eval_setup(np, torch)
+        failed += phase_cards_eval(paths)
+        lap("eval_anon mesh")
+    if "export" in parts:
+        failed += phase_cards_export(np, torch, n, ckpt)
+        lap("export on cuda:1")
+    check(not failed, "the multi-card run:\n" + "\n".join(failed))
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of the dp-train phase
-        return dp_worker(*(int(a) for a in sys.argv[2:5]), *sys.argv[5:7])
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of a data-parallel check
+        return dp_worker(*(int(a) for a in sys.argv[2:5]), *sys.argv[5:10])
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of a CLI under torch.distributed.run
+        return cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:])
     if sys.argv[1:2] == ["--bn-worker"]:  # a rank of the surface phase's batch-norm check
         return bn_worker(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 1
+    cards, parts = None, CARD_PARTS
+    if sys.argv[1:2] == ["--cards"] and len(sys.argv) in (3, 5):
+        cards = int(sys.argv[2])
+        if len(sys.argv) == 5:
+            parts = tuple(sys.argv[4].split(","))
+            if sys.argv[3] != "--only" or not set(parts) <= set(CARD_PARTS):
+                print(f"chip_smoke --cards N [--only {','.join(CARD_PARTS)}]", file=sys.stderr)
+                return 1
+    if cards is not None and not 1 <= cards <= torch.cuda.device_count():
+        print(f"chip_smoke --cards {cards}: {torch.cuda.device_count()} CUDA card(s) visible",
               file=sys.stderr)
         return 1
     import numpy as np
@@ -3550,6 +4452,20 @@ def main() -> int:
         print(f"[time] {path}: {now - clock[0]:.1f} s")
         clock[0] = now
 
+    if cards is not None:
+        for line in subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                                    "--format=csv,noheader"], capture_output=True, text=True,
+                                   check=True).stdout.splitlines():
+            print(f"[card] {line}")
+        cards_main(np, torch, cards, card, lap, parts)
+        shutil.rmtree(WORK, ignore_errors=True)
+        print(f"[done] the {cards}-card run ({','.join(parts)}) passed in"
+              f" {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                  "kind": torch.cuda.get_device_name(0),
+                                                  "count": torch.cuda.device_count()}}))
+        return 0
     phase_build()
     lap("build")
     # serving: anonymize (kernel K1)

@@ -162,8 +162,8 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
         entries.append((utt, wav[0], rate))
     entries.sort(key=lambda e: len(e[1]))
 
-    # one replica (and generator) per device; the first is ``model`` when
-    # it sits on the first device
+    # one replica and one generator per device, the generators seeded alike;
+    # the first replica is ``model`` when it sits on the first device
     replicas = [model if d == device else copy.deepcopy(model).to(d) for d in devices]
     if len(devices) > 1:
         logging.info("serve_mesh: batches split over %d devices", len(devices))
@@ -213,8 +213,13 @@ def process_data(model, speakers: List[str], data_dir: str, results_dir: str,
                 for j, ut in enumerate(utids):
                     f0_host[j] = f0_cmvn(f0_host[j], source_utt2spk.get(ut, ut))
                 f0s = mesh.split_rows(torch.from_numpy(f0_host), devices)
-            out = mesh.gather_rows([m.convert(w, f, t, generator=g) for m, w, f, t, g in zip(
-                replicas, wavs, f0s, tid_blocks, generators)], devices[0])
+            blocks = []
+            for k, (m, w, f, t, g) in enumerate(zip(replicas, wavs, f0s, tid_blocks,
+                                                    generators)):
+                # a replica draws its rows of the batch's F0 noise (awgn)
+                with mesh.row_block(k, len(wavs)):
+                    blocks.append(m.convert(w, f, t, generator=g))
+            out = mesh.gather_rows(blocks, devices[0])
             host, done = _start_host_copy(out[:len(batch)])
             # write the PREVIOUS batch while the device converts this one
             if in_flight is not None:

@@ -99,10 +99,12 @@ class TrainAsrOpts(cfg.Opts):
     augmentation: str = ""
     # the variants' options: tdnnf_spkadv's train_asi phase and gradient
     # reversal, the DP bottleneck's Laplace epsilon, the wav2vec2 front's size
+    # and its transformer layers (0: the size's own 24 or 12)
     freeze_encoder: bool = False
     adversarial: bool = True
     dp_epsilon: float = 0.0
     wav2vec2_size: str = "large"
+    wav2vec2_layers: int = 0
     device: str = "cuda"
 
 
@@ -142,6 +144,8 @@ def build_params_for(opts: TrainAsrOpts, num_speakers: int = 0):
                                   codebook_size=opts.codebook_size, epsilon=opts.dp_epsilon),
             **widths)
         w2v2 = Wav2Vec2Config.large() if opts.wav2vec2_size == "large" else Wav2Vec2Config.base()
+        if opts.wav2vec2_layers:
+            w2v2 = dataclasses.replace(w2v2, num_hidden_layers=opts.wav2vec2_layers)
         return "asrbn_tdnnf_wav2vec2", dict(dataclasses.asdict(mcfg),
                                             wav2vec2=dataclasses.asdict(w2v2))
     bottleneck = {"tdnnf_vq": "vq", "tdnnf_dp": "dp"}.get(opts.model, "none")

@@ -208,8 +208,10 @@ def _train(opts) -> int:
 
     dev_ds = None
     if opts.dev_set:
+        # every rank validates: each appends to a cache shard of its own
         dev_ds = HifiGanDataset(opts.dev_set, speakers=speakers, bn_fn=bn_fn, f0_fn=f0_fn,
                                 segment_size=opts.segment_size, cache_signature=bn_sig,
+                                worker_name=f"w{rank}",
                                 f0_norm_fn=(lambda f0, spk: f0_cmvn(f0, spk))
                                 if f0_cmvn is not None else None)
         if f0_cmvn is not None:

@@ -218,10 +218,11 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
     alphas[0] = alpha0
     llf, lls = llf.contiguous(), lls.contiguous()
     log_self, log_init = log_self.contiguous(), log_init.contiguous()
-    err = lib.satpu_den_fwd(llf.data_ptr(), lls.data_ptr(), *(x.data_ptr() for x in arcs),
-                            log_self.data_ptr(), log_init.data_ptr(), log_leak,
-                            alphas.data_ptr(), B, T, S, nnz, place == "shared",
-                            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the C entry point launches on the current device
+        err = lib.satpu_den_fwd(llf.data_ptr(), lls.data_ptr(),
+                                *(x.data_ptr() for x in arcs), log_self.data_ptr(),
+                                log_init.data_ptr(), log_leak, alphas.data_ptr(), B, T, S,
+                                nnz, place == "shared", torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_fwd launch failed: CUDA error {err}")
     den_fb_forward.launches += 1
@@ -255,10 +256,11 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
     dlls = torch.empty_like(dllf)
     tensors = [x.contiguous() for x in (g_final, alphas, llf, lls)]
     rest = [x.contiguous() for x in (log_self, log_init)]
-    err = lib.satpu_den_bwd(*(x.data_ptr() for x in tensors), *(x.data_ptr() for x in arcs),
-                            *(x.data_ptr() for x in rest), log_leak, dllf.data_ptr(),
-                            dlls.data_ptr(), B, T, S, nnz, place == "shared",
-                            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.satpu_den_bwd(*(x.data_ptr() for x in tensors),
+                                *(x.data_ptr() for x in arcs), *(x.data_ptr() for x in rest),
+                                log_leak, dllf.data_ptr(), dlls.data_ptr(), B, T, S, nnz,
+                                place == "shared", torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_bwd launch failed: CUDA error {err}")
     den_fb_backward.launches += 1

@@ -481,7 +481,8 @@ extern "C" long long satpu_den_smem_bytes(int S, int nnz, int backward, int shar
 // Forward: llf, lls [B, T, S]; A's arcs by destination (in_ptr [S + 1]
 // int32, in_src [nnz] int16, in_val [nnz] f32); log_self, log_init [S];
 // alphas [T + 1, B, S] with alphas[0] = alpha_0 filled by the caller. Writes
-// alphas[1..T]. All contiguous device buffers. One launch on `stream`;
+// alphas[1..T]. All contiguous buffers of the current device, which the
+// caller sets (its shared-memory limit is set there). One launch on `stream`;
 // returns its cudaGetLastError(), or cudaErrorInvalidValue for sizes the
 // kernel does not take.
 extern "C" int satpu_den_fwd(const float* llf, const float* lls, const int* in_ptr,

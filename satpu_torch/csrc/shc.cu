@@ -59,6 +59,7 @@
 
 #include <cstdint>
 #include <mutex>
+#include <vector>
 
 namespace {
 
@@ -447,14 +448,17 @@ int configure(Config& c) {
   return static_cast<int>(err);
 }
 
-// The last call's configuration, as a caller serves one geometry on one
-// device: configuring every call (the pitch search, the shared-memory limit
-// and the occupancy query) took 55-66 us of host time a call against 19-23
-// us (chip_smoke.py's kernel phase, H100 80GB HBM3), more than the kernel at
-// 8000 frames. The mutex is held through the launch, so another thread
-// cannot lower the kernel's shared-memory limit in between.
+// The last call's configuration on each device, as a caller serves one
+// geometry on each card (a serving mesh alternates its cards every batch):
+// configuring every call (the pitch search, the shared-memory limit and
+// the occupancy query) took 55-66 us of host time a call against 19-23 us
+// (chip_smoke.py's kernel phase, H100 80GB HBM3), more than the kernel at
+// 8000 frames. cudaFuncSetAttribute sets the limit of the current device
+// only, so each device keeps its own entry. The mutex is held through the
+// launch, so another thread cannot lower the kernel's shared-memory limit
+// in between.
 std::mutex last_mutex;
-Config last{-1};
+std::vector<Config> last;  // by device ordinal; dev -1: not configured yet
 
 }  // namespace
 
@@ -464,8 +468,10 @@ extern "C" int satpu_shc_fixed(int n_harm, int win) { return n_harm == 4 && win 
 
 // mag [F, M] and out [F, n_out]: contiguous f32 device buffers, 4-byte
 // aligned. The caller guarantees (min_shc + n_out - 1) * n_harm + win - 1 < M
-// and 1 <= n_harm <= 6. Launches on `stream` and returns cudaGetLastError()
-// (0 on success; cudaErrorInvalidValue for a geometry out of range).
+// and 1 <= n_harm <= 6. The buffers and `stream` belong to the current
+// device, which the caller sets (it is configured and launched there).
+// Launches on `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for a geometry out of range).
 extern "C" int satpu_shc_band(const float* mag, float* out, int F, int M, int min_shc,
                               int n_out, int n_harm, int win, void* stream) {
   if (n_harm < 1 || n_harm > kMaxH || win < 1 || n_out < 1) return cudaErrorInvalidValue;
@@ -475,19 +481,21 @@ extern "C" int satpu_shc_band(const float* mag, float* out, int F, int M, int mi
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool fixed = satpu_shc_fixed(n_harm, win);
   std::lock_guard<std::mutex> lock(last_mutex);
-  if (!same_key(last, c)) {
+  if (static_cast<int>(last.size()) <= c.dev) last.resize(c.dev + 1, Config{-1});
+  Config& mine = last[c.dev];
+  if (!same_key(mine, c)) {
     const int e = fixed ? configure<4, 21>(c) : configure<0, 0>(c);
     if (e != 0) return e;
-    last = c;
+    mine = c;
   }
   const Args a{mag, out, F, M, min_shc, n_out, n_harm, win, (n_out + kR - 1) / kR,
-               last.raw_words, reinterpret_cast<uintptr_t>(mag) % 16 == 0, last.lay};
-  const int blocks = min(last.blocks, (F + kRows - 1) / kRows);
+               mine.raw_words, reinterpret_cast<uintptr_t>(mag) % 16 == 0, mine.lay};
+  const int blocks = min(mine.blocks, (F + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fixed) {
-    shc_band_kernel<4, 21><<<blocks, kThreads, last.smem, st>>>(a);
+    shc_band_kernel<4, 21><<<blocks, kThreads, mine.smem, st>>>(a);
   } else {
-    shc_band_kernel<0, 0><<<blocks, kThreads, last.smem, st>>>(a);
+    shc_band_kernel<0, 0><<<blocks, kThreads, mine.smem, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

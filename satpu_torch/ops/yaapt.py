@@ -232,6 +232,7 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     On a CUDA tensor this launches the kernel of ``csrc/shc.cu`` (and counts
     the launch in ``shc_band.launches``); on a CPU tensor it computes the
     plain version, at any harmonic count. Any other device raises. The
+    kernel runs on ``mag``'s card, whichever device is current. The
     kernel takes 1 to ``SHC_MAX_HARMONICS`` harmonics (a CUDA call with more
     raises ValueError); (n_harm, window_length) = (4, 21) runs
     its unrolled instantiation, any other its generic one (recorded in
@@ -263,9 +264,11 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     if n_frames == 0:
         return out
     lib = _shc_lib()
-    err = lib.satpu_shc_band(mag.data_ptr(), out.data_ptr(), n_frames, M, min_shc,
-                             n_out, n_harm, window_length,
-                             torch.cuda.current_stream(mag.device).cuda_stream)
+    # the C entry point configures and launches on the current device
+    with torch.cuda.device(mag.device):
+        err = lib.satpu_shc_band(mag.data_ptr(), out.data_ptr(), n_frames, M, min_shc,
+                                 n_out, n_harm, window_length,
+                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_shc_band launch failed: CUDA error {err}")
     shc_band.launches += 1

@@ -17,10 +17,13 @@ the ranks' gradients.
 
 Serving (``--serve-mesh``) has no process group: one process replicates the
 model on each local device and runs each contiguous block of a batch on its
-own device (``split_rows`` / ``gather_rows``).
+own device (``split_rows`` / ``gather_rows``), each replica drawing its
+block's rows of the batch's random values (``row_block``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Iterable, List, Optional, Sequence
 
 import torch
@@ -145,17 +148,35 @@ def sum_metrics(metrics: dict, replicated: Sequence[str] = ()) -> dict:
     return {**metrics, **dict(zip(keys, vals.unbind()))}
 
 
+_row_block = contextvars.ContextVar("satpu_row_block", default=(0, 1))
+
+
+@contextlib.contextmanager
+def row_block(index: int, count: int):
+    """Within the block, ``global_rows`` without a process group draws for
+    block ``index`` of ``count`` equal row blocks: a serving-mesh replica's
+    share of the batch, whose generator is in the state of every other
+    replica's."""
+    token = _row_block.set((index, count))
+    try:
+        yield
+    finally:
+        _row_block.reset(token)
+
+
 def global_rows(draw, shape) -> torch.Tensor:
     """A random draw for this rank's block of rows of the global batch:
     ``draw(global shape)`` (every rank's generator in the same state draws
     the same values) cut to the block, so that a data-parallel run draws
-    the one-process run's values. ``shape[0]`` is the block's row count."""
-    n = world()
+    the one-process run's values. ``shape[0]`` is the block's row count.
+    Without a process group the block is ``row_block``'s (all rows by
+    default)."""
+    k, n = (rank(), world()) if active() else _row_block.get()
     if n == 1:
         return draw(tuple(shape))
     b = shape[0]
     full = draw((b * n,) + tuple(shape[1:]))
-    return full[rank() * b:(rank() + 1) * b]
+    return full[k * b:(k + 1) * b]
 
 
 def serve_devices(device) -> List[torch.device]:

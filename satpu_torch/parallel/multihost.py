@@ -67,10 +67,13 @@ def init_distributed(device, coordinator_address: Optional[str] = None,
 
 def local_device(device) -> torch.device:
     """The device this rank drives: ``cuda:LOCAL_RANK`` for an unindexed
-    CUDA ``device`` under a launcher that sets LOCAL_RANK, else ``device``."""
+    CUDA ``device`` under a launcher that sets LOCAL_RANK, else ``device``.
+    An indexed card is made the current device: NCCL builds its
+    communicators and runs ``barrier`` on the current device."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     return device
 

@@ -235,3 +235,44 @@ def test_den_cuda_kernels_match_plain(shape):
         assert max((gf - gf_p).abs().max().item(), (gs - gs_p).abs().max().item()) <= 1e-4
     with pytest.raises(ValueError, match="sparse form"):
         den_fb.den_fb_forward(llf, lls, a0, *graph, lk)
+
+
+@pytest.mark.gpu
+def test_den_cuda_kernels_launch_on_their_tensors_card():
+    """K2f/K2b on cuda:1 tensors while cuda:0 is current (a data-parallel
+    rank's or ``train_asr --device cuda:1``'s steps), at the full-scale
+    graph and B=16, T=99: the plain version's values (rel 1e-5) and
+    gradients (1e-4 abs) on that card, two calls bitwise equal, one launch
+    a call, and cuda:0 still current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on another card than the current one")
+    fst, tree, _ = random_bigram_den(164, 9, seed=0)
+    den = DenominatorGraph.from_fst(fst, tree.num_pdfs)
+    dev = torch.device("cuda", 1)
+    g = den.tensors(dev)
+    ll = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (16, 99, tree.num_pdfs)).astype(np.float32) * 2).to(dev)
+    llf, lls = ll.index_select(-1, g["pdf_fwd"]), ll.index_select(-1, g["pdf_self"])
+    a0 = g["start"].expand(16, den.num_states).contiguous()
+    graph = (g["A"], g["log_self"], g["log_init"])
+    lk = den_fb.leak_log(1e-5)
+    with torch.cuda.device(0):
+        outs = []
+        for scan, extra in ((den_fb.den_scan, (g["A_sparse"],)), (den_fb.den_scan, (g["A_sparse"],)),
+                            (den_fb.den_scan_plain, ())):
+            calls = (den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches)
+            x1, x2 = llf.clone().requires_grad_(True), lls.clone().requires_grad_(True)
+            v = den_fb.final_value(scan(x1, x2, a0, *graph, lk, *extra), g["final"],
+                                   g["log_init"], lk)
+            v.sum().backward()
+            outs.append((v.detach(), x1.grad, x2.grad))
+            if extra:
+                assert (den_fb.den_fb_forward.launches - calls[0],
+                        den_fb.den_fb_backward.launches - calls[1]) == (1, 1)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+    (v, gf, gs), again, (v_p, gf_p, gs_p) = outs
+    assert v.device == dev and gf.device == dev
+    assert all(torch.equal(a, b) for a, b in zip((v, gf, gs), again))
+    assert ((v - v_p).abs().max() / v_p.abs().max()).item() <= 1e-5
+    assert max((gf - gf_p).abs().max().item(), (gs - gs_p).abs().max().item()) <= 1e-4

@@ -1,5 +1,6 @@
 """The training CLIs under ``python -m torch.distributed.run --nproc-per-node 2
-... --device cpu`` (two gloo ranks) against the same CLI in one process on
+... --device cpu`` (two gloo ranks; ``train_asr`` also under four) against
+the same CLI in one process on
 the same global batches: ``train_asr`` (the fbank TDNN-F, NG on, dropout
 0.1: a rank draws its block of the global batch's masks), ``train_asv``
 (ECAPA, SpecAugment on) and ``train_vc`` (the GAN; its host-local batches
@@ -40,12 +41,12 @@ def one_thread(monkeypatch):
     torch.set_num_threads(n)
 
 
-def _torchrun(target, args):
-    """``python -m torch.distributed.run --nproc-per-node 2 <target> args``
-    (a module with ``-m``), killed with its workers at TIMEOUT."""
+def _torchrun(target, args, nproc=2):
+    """``python -m torch.distributed.run --nproc-per-node <nproc> <target>
+    args`` (a module with ``-m``), killed with its workers at TIMEOUT."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]),
                OMP_NUM_THREADS="1", SATPU_TENSORBOARD="0")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
            "--master-addr", "localhost", "--master-port", str(free_port()), *target, *args]
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             start_new_session=True)
@@ -90,23 +91,33 @@ def _same_run(exp_dp, exp_one, ckpt_name, loss_keys, adam_noise=(), lr=0.0, tol=
             assert torch.equal(got[k], w), k
 
 
-def test_train_asr_two_ranks(tmp_path):
+def _train_asr_ranks(tmp_path, nproc):
     from satpu_torch.bin import train_asr
     from satpu_torch.chain.prep import write_random_chain_corpus
 
     fx = write_random_chain_corpus(str(tmp_path / "c"), n_utts=8, seconds=1.0, n_phones=4,
                                    succ_per_phone=2, seed=0)
-    # 8 egs of one length: 2 global batches of 4, each rank a block of 2
+    # 8 egs of one length: 2 global batches of 4, each rank a block of 4 / nproc
     args = ["--train-set", fx["data"], "--fst-scp", fx["fst_scp"], "--den-fst", fx["den_fst"],
             "--num-pdfs", str(fx["num_pdfs"]), "--device", "cpu", "--model", "tdnnf",
             "--hidden-dim", "16", "--bottleneck-dim", "8", "--prefinal-bottleneck-dim", "8",
             "--minibatch-size", "4", "--num-epochs", "1", "--checkpoint-interval", "2",
             "--diagnostics-interval", "1"]
     dp, one = str(tmp_path / "dp"), str(tmp_path / "one")
-    _torchrun(["-m", "satpu_torch.bin.train_asr"], args + ["--dirname", dp])
+    _torchrun(["-m", "satpu_torch.bin.train_asr"], args + ["--dirname", dp], nproc)
     assert train_asr.main(args + ["--dirname", one]) == 0
     assert sorted(os.listdir(dp)) == sorted(os.listdir(one))
     _same_run(dp, one, "final.ckpt", ("loss", "chain_objf"))
+
+
+def test_train_asr_two_ranks(tmp_path):
+    _train_asr_ranks(tmp_path, 2)
+
+
+def test_train_asr_four_ranks(tmp_path):
+    """A row of each global batch a rank: the batch norms' statistics come
+    from the other ranks' rows."""
+    _train_asr_ranks(tmp_path, 4)
 
 
 def test_train_asv_two_ranks(tmp_path):
@@ -178,6 +189,10 @@ def test_train_vc_two_ranks(tmp_path, monkeypatch):
     dp, one = str(tmp_path / "dp"), str(tmp_path / "one")
     _torchrun([os.path.join(ROOT, "tests", "torch_vc_small_discriminators.py")],
               args + ["--dirname", dp])
+    # every rank validates into a dev-set cache shard of its own (one shard
+    # appended by both ranks at once would interleave their records)
+    shards = os.listdir(os.path.join(fx["dev"], "feature_cache"))
+    assert {s.rsplit(".", 2)[-2] for s in shards if s.endswith(".ark")} == {"w0", "w1"}
 
     monkeypatch.setattr(trainer, "GanHparams", functools.partial(
         trainer.GanHparams, mpd_periods=(2,), msd_scales=2, disc_channel_scale=1 / 16))

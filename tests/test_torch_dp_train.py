@@ -1,7 +1,9 @@
-"""The port's data-parallel training steps on the CPU: two gloo ranks, each
-on its contiguous block of the global batches (``torch_dp_worker``), against
-one process on the global batches, and against satpu's single-device step
-(which its ``data``-mesh step equals) on the same global batches.
+"""The port's data-parallel training steps on the CPU: two and four gloo
+ranks, each on its contiguous block of the global batches
+(``torch_dp_worker``), against one process on the global batches, and
+against satpu's single-device step (which its ``data``-mesh step equals) on
+the same global batches. satpu's step and the one-process run are computed
+once a module (fixtures); each world size is a case of the same test.
 
 - the chain trainer (TDNN-F + VQ, NG on, dropout 0) in f64, 2 steps: the
   losses and metrics rel 1e-6 and the step-1 gradients after NG rel 1e-5
@@ -18,13 +20,13 @@ one process on the global batches, and against satpu's single-device step
   metrics and every tensor rel 1e-9; in f32 from satpu's init, the step-1
   metrics against satpu's at ``test_torch_gan_trainer.py``'s 1e-4.
 
-The two halves of each global batch differ (other content, unequal
+The ranks' blocks of each global batch differ (other content, unequal
 ``num_frames``): each test computes, from the data, what training each
-half on its own statistics and averaging gives, and asserts that it
+block on its own statistics and averaging gives, and asserts that it
 misses the global step by far more than the tolerance. Dropout is 0 in the
 chain net: a rank draws its block of the global batch's masks, so a
-two-rank run draws the one-process run's values, but not satpu's (another
-generator)."""
+data-parallel run draws the one-process run's values, but not satpu's
+(another generator)."""
 import os
 
 import numpy as np
@@ -48,13 +50,17 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _spawn(case, runs, tmp_path):
+WORLDS = [2, 4]
+
+
+def _spawn(case, runs, tmp_path, world):
     torch.save(runs, os.path.join(str(tmp_path), "inputs.pt"))
-    outs = W.spawn(case, 2, str(tmp_path), timeout=TIMEOUT)
-    # rank 1 ends in rank 0's state
-    for a, b in zip(outs[0], outs[1]):
-        for k in a["state"]:
-            assert torch.equal(a["state"][k], b["state"][k]), k
+    outs = W.spawn(case, world, str(tmp_path), timeout=TIMEOUT)
+    # every rank ends in rank 0's state
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            for k in a["state"]:
+                assert torch.equal(a["state"][k], b["state"][k]), k
     return outs[0]
 
 
@@ -111,7 +117,10 @@ def _warm_codebook(state, cfg, wav):
         "ema_w": jnp.asarray(emb * 50.0)}}})
 
 
-def test_chain_step_is_the_global_batch_step(tmp_path):
+@pytest.fixture(scope="module")
+def chain_case():
+    """The chain run's inputs (satpu's init with a warm codebook, in f64),
+    the one-process run, and satpu's step-1 loss and gradients."""
     import optax
 
     from satpu.chain.fst import Fst as JFst
@@ -134,8 +143,29 @@ def test_chain_step_is_the_global_batch_step(tmp_path):
          "vq_stats": state.vq_stats})).items()}
     ng = ng_states_from_satpu(jax_variables_numpy(unstack_ng_state(state.ng_state)))
     run = {"dtype": torch.float64, "cfg": cfg, "state": sd, "ng_states": ng, "batches": batches}
-    dp = _spawn("chain", [run], tmp_path)[0]
-    one = W.run_chain(run)
+
+    # satpu's step on the global batch
+    fst = random_bigram_den(5, 3, seed=2)[0]
+    jden = JDen.from_fst(JFst.from_text(fst.to_text()), P)
+    wav, graphs, frames = batches[0]
+    with jax.enable_x64():
+        f64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating)
+            else a, state)
+        new, metrics = jax.jit(make_chain_train_step(jnet, jden, optax.scale(1e6)))(
+            f64, wav, {k: jnp.asarray(v) for k, v in graphs.items()}, jnp.asarray(frames),
+            jax.random.PRNGKey(0))
+        ref = from_satpu_variables({"params": jax_variables_numpy(jax.tree_util.tree_map(
+            lambda a, b: (np.asarray(a) - np.asarray(b)) / 1e6, new.params, f64.params))})
+    return {"run": run, "one": W.run_chain(run), "satpu_loss": float(metrics["loss"]),
+            "satpu_grads": ref}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_chain_step_is_the_global_batch_step(chain_case, world, tmp_path):
+    run, one = chain_case["run"], chain_case["one"]
+    batches = run["batches"]
+    dp = _spawn("chain", [run], tmp_path, world)[0]
 
     lr = 1e-3
     for k in range(2):
@@ -157,30 +187,19 @@ def test_chain_step_is_the_global_batch_step(tmp_path):
             assert rel_err(dp["state"][n].numpy(), v.numpy()) <= 1e-5, n
 
     # satpu's step on the global batch
-    fst = random_bigram_den(5, 3, seed=2)[0]
-    jden = JDen.from_fst(JFst.from_text(fst.to_text()), P)
-    wav, graphs, frames = batches[0]
-    with jax.enable_x64():
-        f64 = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(a, jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating)
-            else a, state)
-        new, metrics = jax.jit(make_chain_train_step(jnet, jden, optax.scale(1e6)))(
-            f64, wav, {k: jnp.asarray(v) for k, v in graphs.items()}, jnp.asarray(frames),
-            jax.random.PRNGKey(0))
-        ref = from_satpu_variables({"params": jax_variables_numpy(jax.tree_util.tree_map(
-            lambda a, b: (np.asarray(a) - np.asarray(b)) / 1e6, new.params, f64.params))})
-    assert rel_err(dp["loss"][0], float(metrics["loss"])) <= 1e-4
+    assert rel_err(dp["loss"][0], chain_case["satpu_loss"]) <= 1e-4
     for n, g in dp["grads"].items():
         if n not in zero:
-            assert rel_err(g.numpy(), ref[n].numpy()) <= 1e-3, n
+            assert rel_err(g.numpy(), chain_case["satpu_grads"][n].numpy()) <= 1e-3, n
 
-    # per-rank statistics (each half trained alone, the gradients averaged)
+    # per-rank statistics (each block trained alone, the gradients averaged)
     # miss the global step
-    halves = [W.run_chain(dict(run, batches=[tuple(W.block(x, r, 2) for x in batches[0])]))
-              for r in range(2)]
-    assert frames[:2].sum() != frames[2:].sum()
-    worst = max(rel_err((halves[0]["grads"][n] + halves[1]["grads"][n]).numpy() / 2,
-                        g.numpy()) for n, g in one["grads"].items() if n not in zero)
+    frames = batches[0][2]
+    blocks = [W.run_chain(dict(run, batches=[tuple(W.block(x, r, world) for x in batches[0])]))
+              for r in range(world)]
+    assert len({int(W.block(frames, r, world).sum()) for r in range(world)}) > 1
+    worst = max(rel_err(sum(b["grads"][n] for b in blocks).numpy() / world, g.numpy())
+                for n, g in one["grads"].items() if n not in zero)
     assert worst > 1e-1
 
 
@@ -198,7 +217,10 @@ def _asv_batch():
     return wav, (np.arange(AB) % 4).astype(np.int32)
 
 
-def test_asv_step_is_the_global_batch_step(tmp_path):
+@pytest.fixture(scope="module")
+def asv_case():
+    """The ASV runs' inputs (f64 with SpecAugment; f32 on satpu's features),
+    the one-process f64 run, and satpu's 3 steps from the same init."""
     from satpu.sidekit.preprocessor import mel_spec_frontend
     from satpu.sidekit.trainer import init_asv_state, make_asv_optimizer, make_asv_train_step
     from satpu.sidekit.xvector import XVectorConfig as JCfg
@@ -224,8 +246,15 @@ def test_asv_step_is_the_global_batch_step(tmp_path):
              "batches": [(wav.astype(np.float64), spk)] * ASTEPS},
             {"dtype": torch.float32, "cfg": dict(XV, spec_augment=False), "lr": ALR,
              "state": sd, "batches": [(wav, spk)] * ASTEPS, "feats": [feats] * ASTEPS}]
-    dp64, dp32 = _spawn("asv", runs, tmp_path)
-    one = W.run_asv(runs[0])
+    return {"runs": runs, "one": W.run_asv(runs[0]), "satpu_loss": jloss, "satpu_state": v3,
+            "init": sd}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_asv_step_is_the_global_batch_step(asv_case, world, tmp_path):
+    runs, one, sd = asv_case["runs"], asv_case["one"], asv_case["init"]
+    wav, spk = runs[0]["batches"][0]
+    dp64, dp32 = _spawn("asv", runs, tmp_path, world)
     for a, b in zip(dp64["loss"], one["loss"]):
         assert rel_err(a, b) <= 1e-9
     assert dp64["accuracy"] == one["accuracy"]
@@ -237,9 +266,9 @@ def test_asv_step_is_the_global_batch_step(tmp_path):
     assert any("running_var" in k for k in one["state"])
 
     # satpu's 3 steps on satpu's features
-    for loss, ref in zip(dp32["loss"], jloss):
+    for loss, ref in zip(dp32["loss"], asv_case["satpu_loss"]):
         assert rel_err(loss, ref) <= 1e-4
-    for k, w in v3.items():
+    for k, w in asv_case["satpu_state"].items():
         if k in ZERO_GRAD_TENSORS:
             lim = ASTEPS * ALR * (1 + 1e-3)
             assert (dp32["state"][k] - sd[k]).abs().max() <= lim, k
@@ -247,9 +276,9 @@ def test_asv_step_is_the_global_batch_step(tmp_path):
             assert rel_err(dp32["state"][k].numpy(), w.numpy()) <= 1e-4, k
 
     # per-rank batch statistics miss the global loss
-    halves = [W.run_asv(dict(runs[0], batches=[(W.block(wav.astype(np.float64), r, 2),
-                                                W.block(spk, r, 2))])) for r in range(2)]
-    per_rank = (halves[0]["loss"][0] + halves[1]["loss"][0]) / 2
+    blocks = [W.run_asv(dict(runs[0], batches=[(W.block(wav, r, world), W.block(spk, r, world))]))
+              for r in range(world)]
+    per_rank = sum(b["loss"][0] for b in blocks) / world
     assert rel_err(per_rank, one["loss"][0]) > 1e-3
 
 
@@ -275,7 +304,10 @@ def _gan_batches():
     return out
 
 
-def test_gan_step_is_the_global_batch_step(tmp_path):
+@pytest.fixture(scope="module")
+def gan_case():
+    """The GAN runs' inputs (satpu's init; f64 over two global batches, f32
+    over one), the one-process f64 run, and satpu's step-1 metrics."""
     from satpu.hifigan.trainer import GanHparams, init_gan_state, make_gan_train_step
     from satpu.models.anonymizer import AnonymizationNet as JNet
     from satpu.models.anonymizer import AnonymizerConfig as JCfg
@@ -310,8 +342,15 @@ def test_gan_step_is_the_global_batch_step(tmp_path):
              "batches": [{k: v.astype(np.float64) for k, v in b.items()} for b in batches]},
             {"dtype": torch.float32, "cfg": cfg, "hparams": hp, "state": sd, "disc": disc,
              "batches": batches[:1]}]
-    dp64, dp32 = _spawn("gan", runs, tmp_path)
-    one = W.run_gan(runs[0])
+    return {"runs": runs, "one": W.run_gan(runs[0]),
+            "first": W.run_gan(dict(runs[0], batches=runs[0]["batches"][:1])),
+            "satpu_metrics": {k: float(v) for k, v in jm.items()}}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_gan_step_is_the_global_batch_step(gan_case, world, tmp_path):
+    runs, one = gan_case["runs"], gan_case["one"]
+    dp64, dp32 = _spawn("gan", runs, tmp_path, world)
     for got, want in zip(dp64["metrics"], one["metrics"]):
         for k, v in want.items():
             assert rel_err(got[k], v) <= 1e-9, k
@@ -320,11 +359,10 @@ def test_gan_step_is_the_global_batch_step(tmp_path):
             if v.is_floating_point():
                 assert rel_err(dp64[part][k].numpy(), v.numpy()) <= 1e-9, (part, k)
     for k in ("loss_gen_all", "loss_disc_all", "mel_spec_error", "lr"):
-        assert rel_err(dp32["metrics"][0][k], float(jm[k])) <= 1e-4, k
+        assert rel_err(dp32["metrics"][0][k], gan_case["satpu_metrics"][k]) <= 1e-4, k
 
-    # a rank that stepped on its own half's gradients leaves the global step
-    half = W.run_gan(dict(runs[0], batches=[W.block(runs[0]["batches"][0], 0, 2)]))
-    first = W.run_gan(dict(runs[0], batches=runs[0]["batches"][:1]))
-    worst = max(rel_err(half["state"][k].numpy(), v.numpy())
-                for k, v in first["state"].items() if k.startswith("hifigan."))
+    # a rank that stepped on its own block's gradients leaves the global step
+    own = W.run_gan(dict(runs[0], batches=[W.block(runs[0]["batches"][0], 0, world)]))
+    worst = max(rel_err(own["state"][k].numpy(), v.numpy())
+                for k, v in gan_case["first"]["state"].items() if k.startswith("hifigan."))
     assert worst > 1e-3

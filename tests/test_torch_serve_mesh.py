@@ -3,8 +3,11 @@
 split into two contiguous blocks) against the unsharded run: every
 utterance's waveform (before the PCM16 write) within 1e-6, and satpu's
 convert on the same padded batch with the port's F0 at the convert parity
-tolerance (rel 1e-4, f32); a batch size the device count does not divide
-is refused; ``anonymize --serve-mesh true`` on one device runs unsharded."""
+tolerance (rel 1e-4, f32); four replicas (a row each) within 1e-6 of the
+unsharded run, with and without the random F0 transformation (each
+replica draws its rows of the batch's noise); a batch size the device
+count does not divide is refused; ``anonymize --serve-mesh true`` on one
+device runs unsharded."""
 import os
 
 import numpy as np
@@ -52,7 +55,7 @@ def setup(tmp_path_factory):
     return root, data, wavs, net.eval(), jnet, variables
 
 
-def _run(setup, monkeypatch, name, devices, batch_size=4):
+def _run(setup, monkeypatch, name, devices, batch_size=4, f0_transformation=""):
     """process_data's float waveforms by utterance."""
     from satpu_torch.bin import pipeline
 
@@ -67,7 +70,7 @@ def _run(setup, monkeypatch, name, devices, batch_size=4):
     monkeypatch.setattr(pipeline.kaldi_data, "write_wav", capture)
     pipeline.process_data(net, SPEAKERS, data, str(root / name), target_constant_spkid="spkB",
                           batch_size=batch_size, new_datadir_suffix=f"_{name}",
-                          devices=devices)
+                          devices=devices, f0_transformation=f0_transformation)
     return written
 
 
@@ -91,6 +94,38 @@ def test_process_data_over_two_devices(setup, monkeypatch):
     ref = np.asarray(jnet.apply(variables, batch, f0, tid, method=jnet.convert))
     for j, u in enumerate(utts):
         assert rel_err(mesh[u], ref[j, :len(wavs[u])]) <= 1e-4, u
+
+
+@pytest.mark.parametrize("f0_transformation", ["", "awgn_10"])
+def test_process_data_over_four_devices(setup, monkeypatch, f0_transformation):
+    """A random tiny generator barely hears its F0 (the waveforms move by
+    ~3e-8 under awgn), so the transformed F0 that the replicas feed their
+    generators is compared too: the concatenated blocks are the unsharded
+    batch's, noise included."""
+    from satpu_torch.models import anonymizer
+
+    wavs = setup[2]
+    transformed = []
+    transform = anonymizer.apply_f0_transformation
+
+    def record(f0, spec, generator=None):
+        out = transform(f0, spec, generator)
+        transformed.append(out.clone())
+        return out
+
+    monkeypatch.setattr(anonymizer, "apply_f0_transformation", record)
+    tag = f0_transformation or "plain"
+    one = _run(setup, monkeypatch, f"one_{tag}", None, f0_transformation=f0_transformation)
+    one_f0, transformed[:] = list(transformed), []
+    mesh = _run(setup, monkeypatch, f"four_{tag}", ["cpu"] * 4,
+                f0_transformation=f0_transformation)
+    assert sorted(mesh) == sorted(wavs)
+    for u in wavs:
+        assert mesh[u].shape == (len(wavs[u]),)
+        assert np.abs(mesh[u] - one[u]).max() <= 1e-6, u
+    if f0_transformation:
+        assert len(one_f0) == 1 and len(transformed) == 4
+        assert torch.equal(torch.cat(transformed), one_f0[0])
 
 
 def test_process_data_refuses_an_indivisible_batch(setup, monkeypatch):

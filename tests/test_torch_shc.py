@@ -229,3 +229,32 @@ def test_shc_band_rejects_harmonics_the_kernel_has_no_room_for(cuda, n_harm):
     assert SHC_MAX_HARMONICS == 6
     with pytest.raises(ValueError, match="harmonics"):
         shc_band(torch.zeros(2, 4000, device="cuda"), MIN_SHC, I, n_harm, J)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on another card than the current one")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["fixed", "generic"])
+def test_shc_cuda_kernel_launches_on_its_tensors_card(two_cards, geometry):
+    """K1 on a cuda:1 tensor while cuda:0 is current (a serving-mesh
+    replica, ``anonymize --device cuda:1``), then on cuda:0 and on cuda:1
+    again (each card keeps its own launch configuration): the plain
+    version's output on the tensor's card, two calls bitwise equal, one
+    launch a call, and cuda:0 still current."""
+    from satpu_torch.ops.yaapt import shc_band
+
+    args, m = ((MIN_SHC, I, H, J), M) if geometry == "fixed" else _geometry(
+        OTHER_GEOMETRIES[0][0])
+    mag = torch.from_numpy(np.random.default_rng(3).random((2003, m)).astype(np.float32))
+    with torch.cuda.device(0):
+        for card in (1, 0, 1):
+            x = mag.to(f"cuda:{card}")
+            out, rel = _card_vs_plain(x, *args)
+            assert out.device == x.device and rel <= 1e-5
+            assert torch.equal(out, shc_band(x, *args))
+            assert shc_band.instantiation == geometry
+            assert torch.cuda.current_device() == 0

@@ -11,6 +11,7 @@ every model variant and option a few steps each (``tdnnf_dp``,
 shrunk for the CPU, ``compute_dtype = bfloat16``, transition-id graphs
 through ``trans_mdl``), their checkpoints loaded by ``infer_helper``; the
 default device raises on a machine without a card."""
+import dataclasses
 import json
 import os
 
@@ -254,6 +255,22 @@ def test_freeze_encoder_needs_spkadv(fixture):
     with pytest.raises(ValueError, match="tdnnf_spkadv"):
         train_asr.main(_args(fixture, exp, "--freeze-encoder", "true"))
     assert not os.path.exists(exp)
+
+
+@pytest.mark.parametrize("layers", [0, 4])
+def test_wav2vec2_layers_cuts_the_front_in_depth(layers):
+    """``--wav2vec2-layers`` keeps the size's widths and sets its transformer
+    depth (0: the size's own 24), in the build parameters a checkpoint
+    records."""
+    from satpu_torch.bin.train_asr import TrainAsrOpts, build_params_for
+    from satpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    opts = TrainAsrOpts().load_from_args(["--model", "tdnnf_wav2vec2_vq", "--num-pdfs", "40",
+                                          "--wav2vec2-layers", str(layers)])
+    model_id, params = build_params_for(opts)
+    large = dataclasses.asdict(Wav2Vec2Config.large())
+    assert model_id == "asrbn_tdnnf_wav2vec2"
+    assert params["wav2vec2"] == dict(large, num_hidden_layers=layers or 24)
 
 
 def test_default_device_raises_without_a_card(fixture):
