@@ -280,6 +280,14 @@ def w2v2_cut():
     return dataclasses.replace(Wav2Vec2Config.large(), num_hidden_layers=CUT_LAYERS)
 
 
+def kernel_launches(kernel: str) -> int:
+    """The launches of ``kernel`` (``k1``, ``k2f``, ``k2b``) the port has
+    counted so far in this process (``satpu_torch.utils.trace.counters``)."""
+    from satpu_torch.utils import trace
+
+    return trace.counters().get(kernel + ".launches", 0)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
@@ -531,14 +539,14 @@ def phase_slice(np, torch):
     kaldi_data.write_keyed_text(wav_scp, os.path.join(data, "wav.scp"))
     kaldi_data.write_keyed_text(utt2spk, os.path.join(data, "utt2spk"))
 
-    Y.shc_band.launches = 0
+    n0 = kernel_launches("k1")
     t0 = time.perf_counter()
     rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
                          "--target-selection-algorithm", "random_per_utt",
                          "--results-dir", os.path.join(WORK, "out")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"shc_band": Y.shc_band.launches}
+    launches = {"shc_band": kernel_launches("k1") - n0}
     check(rc == 0, f"anonymize exited {rc}")
     audio = sum(s for s, _ in SLICE_UTTS)
     print(f"[slice] anonymize CLI on cuda: {len(SLICE_UTTS)} utterances, {audio:.1f} s of audio"
@@ -906,7 +914,7 @@ def phase_train(np, torch):
           f" {time.perf_counter() - t0:.1f} s")
     exp = os.path.join(WORK, "chain", "exp")
     steps = 4  # 32 egs of one length, B=16: 2 steps an epoch, 2 epochs
-    den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+    n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
     t0 = time.perf_counter()
     rc = train_asr.main(["--train-set", fx["data"], "--fst-scp", fx["fst_scp"],
                          "--valid-set", fx["valid"], "--valid-fst-scp", fx["valid_fst_scp"],
@@ -916,8 +924,8 @@ def phase_train(np, torch):
                          "--diagnostics-interval", "1", "--dirname", exp])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"den_fb_forward": den_fb.den_fb_forward.launches,
-                "den_fb_backward": den_fb.den_fb_backward.launches}
+    launches = {"den_fb_forward": kernel_launches("k2f") - n0[0],
+                "den_fb_backward": kernel_launches("k2b") - n0[1]}
     check(rc == 0, f"train_asr exited {rc}")
     print(f"[train] train_asr on cuda: tdnnf_vq 1024 / VQ-48 / {NUM_PDFS} pdfs, NG on,"
           f" {steps} steps of B=16 x {EG_SECONDS} s + held-out diagnostics every step and"
@@ -1572,7 +1580,7 @@ def phase_gan(np, torch, card):
 
     exp = os.path.join(root, "exp")
     gan_trainer.GanTrainer.train_step = recording
-    Y.shc_band.launches = 0
+    n0 = kernel_launches("k1")
     try:
         t0 = time.perf_counter()
         rc = train_vc.main(["--config", os.path.join(ROOT, GAN_CONFIG), "--train-set",
@@ -1582,7 +1590,7 @@ def phase_gan(np, torch, card):
         wall = time.perf_counter() - t0
     finally:
         gan_trainer.GanTrainer.train_step = step
-    launches = Y.shc_band.launches
+    launches = kernel_launches("k1") - n0
     check(rc == 0, f"train_vc exited {rc}")
     steps = -(-len(SPEAKERS) // 32)
     print(f"[gan] train_vc on cuda ({GAN_CONFIG}: generator 512, MPD 2/3/5/7/11, MSD x3, B=32,"
@@ -2077,7 +2085,7 @@ def train_asr_cli(torch, config: str, args, env):
 
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+    n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
     t0 = time.perf_counter()
     try:
         rc = train_asr.main(["--config", os.path.join(ROOT, config)] + list(args))
@@ -2089,8 +2097,8 @@ def train_asr_cli(torch, config: str, args, env):
             else:
                 os.environ[k] = v
     wall = time.perf_counter() - t0
-    launches = {"den_fb_forward": den_fb.den_fb_forward.launches,
-                "den_fb_backward": den_fb.den_fb_backward.launches}
+    launches = {"den_fb_forward": kernel_launches("k2f") - n0[0],
+                "den_fb_backward": kernel_launches("k2b") - n0[1]}
     with open(os.path.join(env["exp"], "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     return rc, wall, launches, logged
@@ -2334,7 +2342,7 @@ def phase_w2v2_throughput(np, torch, fx, card):
         wall = (time.perf_counter() - t0) / iters
         check(bool(torch.isfinite(metrics["loss"])), f"w2v2 loss not finite, {dtype}")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+        n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 trainer.step(wav, graphs, frames)
@@ -2348,7 +2356,8 @@ def phase_w2v2_throughput(np, torch, fx, card):
         # these steps over the wrappers' calls in them (a short trace of a
         # few calls has come back empty on the card late in this script)
         kernels = [sum(r[1] for r in rows if name in r[2]) for name in ("den_fwd", "den_bwd")]
-        calls = [den_fb.den_fb_forward.launches // iters, den_fb.den_fb_backward.launches // iters]
+        calls = [(kernel_launches("k2f") - n0[0]) // iters,
+                 (kernel_launches("k2b") - n0[1]) // iters]
         print(f"[w2v2-throughput] den kernels a step in the trace: K2f {kernels[0]}, K2b"
               f" {kernels[1]}, for {calls[0]} and {calls[1]} wrapper calls a step")
         check(calls[0] > 0 and kernels == calls,
@@ -2881,7 +2890,7 @@ def dp_run(torch, inp, rank: int, world: int, trainers=("chain", "asv", "gan"),
         trainer = ChainTrainer(model, DenominatorGraph.from_fst(
             Fst.read(inp["chain"]["den_fst"]), NUM_PDFS), lr_schedule=lambda step: DP_LR)
         wav, graphs, frames = inp["chain"]["batch"]
-        den_fb.den_fb_forward.launches = den_fb.den_fb_backward.launches = 0
+        n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
         loss, steps = [], []
         for _ in range(DP_STEPS):
             loss.append(float(trainer.step(rows(wav).to(dt), {k: rows(v) for k, v in
@@ -2894,8 +2903,8 @@ def dp_run(torch, inp, rank: int, world: int, trainers=("chain", "asv", "gan"),
                 "ng": keep({f"{n}.{side}.{k}": st[k] for n, sides in trainer.ng_states.items()
                             for side, st in sides.items() for k in ("d", "rho")})})
         out["chain"] = {"loss": loss, "state": steps[-1]["state"], "steps": steps,
-                        "launches": {"den_fb_forward": den_fb.den_fb_forward.launches,
-                                     "den_fb_backward": den_fb.den_fb_backward.launches}}
+                        "launches": {"den_fb_forward": kernel_launches("k2f") - n0[0],
+                                     "den_fb_backward": kernel_launches("k2b") - n0[1]}}
         del trainer, model
         torch.cuda.empty_cache()
 
@@ -3209,9 +3218,9 @@ def cli_rank(name: str, counts: str, args) -> int:
     rc = importlib.import_module(f"satpu_torch.bin.{name}").main(args)
     os.makedirs(counts, exist_ok=True)
     with open(os.path.join(counts, f"rank{os.environ['RANK']}.json"), "w") as f:
-        json.dump({"card": torch.cuda.current_device(), "shc_band": Y.shc_band.launches,
-                   "den_fb_forward": den_fb.den_fb_forward.launches,
-                   "den_fb_backward": den_fb.den_fb_backward.launches}, f)
+        json.dump({"card": torch.cuda.current_device(), "shc_band": kernel_launches("k1"),
+                   "den_fb_forward": kernel_launches("k2f"),
+                   "den_fb_backward": kernel_launches("k2b")}, f)
     return rc
 
 
@@ -3364,13 +3373,13 @@ def phase_serve_mesh(np, torch, ckpt):
     from satpu_torch.utils import kaldi_data
 
     data = os.path.join(WORK, "data")
-    Y.shc_band.launches = 0
+    n0 = kernel_launches("k1")
     rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
                          "--target-selection-algorithm", "random_per_utt", "--serve-mesh",
                          "true", "--new-datadir-suffix", "_mesh", "--results-dir",
                          os.path.join(WORK, "out_mesh")])
     check(rc == 0, f"anonymize --serve-mesh exited {rc}")
-    total = Y.shc_band.launches
+    total = kernel_launches("k1") - n0
     a = kaldi_data.read_wav_scp(os.path.join(data + "_anon", "wav.scp"))
     b = kaldi_data.read_wav_scp(os.path.join(data + "_mesh", "wav.scp"))
     check(sorted(a) == sorted(b), "serve-mesh wrote other utterances")
@@ -3391,7 +3400,7 @@ def phase_serve_mesh(np, torch, ckpt):
             write(path, x, rate)
 
         pipeline.kaldi_data.write_wav = capture
-        Y.shc_band.launches = 0
+        n0 = kernel_launches("k1")
         try:
             pipeline.process_data(model, meta["speakers"], data, os.path.join(WORK, f"mesh_{name}"),
                                   target_selection_algorithm="random_per_utt", batch_size=8,
@@ -3399,7 +3408,7 @@ def phase_serve_mesh(np, torch, ckpt):
             torch.cuda.synchronize()
         finally:
             pipeline.kaldi_data.write_wav = write
-        launches[name] = Y.shc_band.launches
+        launches[name] = kernel_launches("k1") - n0
     total += sum(launches.values())
     worst = max(float(np.abs(outs["two"][u] - outs["one"][u]).max()) for u in outs["one"])
     print(f"[serve-mesh] process_data over [cuda:0, cuda:0] (the flagship in f32, a batch of 8"
@@ -3411,6 +3420,13 @@ def phase_serve_mesh(np, torch, ckpt):
     return total
 
 
+# what the exported program's process loads: K1's op registration and the
+# recorder its wrapper counts launches in (``satpu_torch.utils`` imports the
+# host utilities beside it); no model code
+EXPORT_MODULES = ["satpu_torch", "satpu_torch.ops", "satpu_torch.ops.yaapt", "satpu_torch.utils",
+                  "satpu_torch.utils.checkpoint", "satpu_torch.utils.config",
+                  "satpu_torch.utils.kaldi_data", "satpu_torch.utils.scp_io",
+                  "satpu_torch.utils.trace"]
 EXPORT_RUN = """
 import json, sys, time
 import torch
@@ -3421,11 +3437,12 @@ prog = torch.export.load(sys.argv[1]).module()
 load_s = time.perf_counter() - t0
 io = torch.load(sys.argv[2])
 wav, tid = io["wav"].cuda(), io["tid"].cuda()
-Y.shc_band.launches = 0
+from satpu_torch.utils import trace
+n0 = trace.counters().get("k1.launches", 0)
 with torch.no_grad():
     out = prog(wav, tid)
     torch.cuda.synchronize()
-    launches = Y.shc_band.launches
+    launches = trace.counters().get("k1.launches", 0) - n0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
@@ -3479,7 +3496,7 @@ def phase_export(np, torch, card, ckpt):
           f" the program {res['launches']}; departure from eager {res['max_abs']:.3e} abs,"
           f" rel {res['rel']:.3e}; {audio / res['ms'] * 1e3:.1f} audio-s/s exported,"
           f" {audio / eager_ms * 1e3:.1f} eager [{card}]")
-    check(res["modules"] == ["satpu_torch", "satpu_torch.ops", "satpu_torch.ops.yaapt"],
+    check(res["modules"] == EXPORT_MODULES,
           f"the exported program's process imported {res['modules']}")
     check(res["launches"] >= 1, "the exported program did not launch K1")
     check(res["rel"] <= 2e-2, f"exported convert departs from eager by rel {res['rel']:.3e}")
@@ -3851,9 +3868,9 @@ def phase_cards_kernels(np, torch, n: int):
         torch.cuda.set_device(other)
         for geometry, args, mag in (("flagship", flagship, real16.to(dev)),
                                     ("generic", generic, rand.to(dev))):
-            n0 = Y.shc_band.launches
+            n0 = kernel_launches("k1")
             out, again = Y.shc_band(mag, *args), Y.shc_band(mag, *args)
-            calls = Y.shc_band.launches - n0
+            calls = kernel_launches("k1") - n0
             ref = Y.shc_band_plain(mag, *args)
             rel = (out - ref).abs().max().item() / ref.abs().max().item()
             same = bool(torch.equal(out, again))

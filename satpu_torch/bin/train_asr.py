@@ -189,7 +189,7 @@ def _train(opts: TrainAsrOpts) -> int:
     from ..chain.trainer import ChainTrainer, ChainTrainOpts
     from ..ops.augment import load_augmentation
     from ..parallel import mesh, multihost
-    from ..utils.metrics import MetricsWriter, profile_steps
+    from ..utils.metrics import MetricsWriter
 
     dev = multihost.local_device(resolve_device(opts.device))
     world, rank = mesh.world(), mesh.rank()
@@ -296,36 +296,35 @@ def _train(opts: TrainAsrOpts) -> int:
     with MetricsWriter(opts.dirname) if rank == 0 else contextlib.nullcontext() as metrics_log:
         for epoch in range(start_epoch, opts.num_epochs):
             sampler.set_epoch(epoch)
-            with profile_steps(opts.dirname, enabled=None if rank == 0 else False):
-                for batch_idx in sampler:
-                    wavs, graphs, frames, utts = ds.load_batch(batch_idx)
-                    spk = (np.asarray([spk_index.get(u, 0) for u in utts])
-                           if spk_index is not None else None)
-                    if world > 1:
-                        # satpu's repeat-padding of a short batch, then this
-                        # rank's contiguous block
-                        rows = np.asarray(mesh.repeat_pad_rows(len(frames), world)
-                                          or range(len(frames)))
-                        rows = rows[mesh.local_batch_slice(len(rows), rank, world)]
-                        wavs, frames = wavs[rows], frames[rows]
-                        graphs = {k: np.asarray(v)[rows] for k, v in graphs.items()}
-                        spk = spk[rows] if spk is not None else None
-                    kw = {} if spk is None else {"spk_target": torch.from_numpy(spk).to(dev)}
-                    metrics = trainer.step(*to_dev(wavs, graphs, frames), **kw)
-                    steps += 1
-                    if steps % opts.diagnostics_interval == 0 and rank == 0:
-                        scal = {k: float(v) for k, v in metrics.items()}
-                        logging.info("epoch %d step %d objf %.4f (num %.3f den %.3f) lr %.5f",
-                                     epoch, steps, scal["chain_objf"], scal["num_logprob"],
-                                     scal["den_logprob"], scal["lr"])
-                        if valid_ds is not None:
-                            v = valid_objf()
-                            if v is not None:
-                                scal["valid_objf"] = v
-                                logging.info("  valid objf %.4f", v)
-                        metrics_log.write(steps, scal, epoch=epoch)
-                    if steps % opts.checkpoint_interval == 0:
-                        save(epoch)
+            for batch_idx in sampler:
+                wavs, graphs, frames, utts = ds.load_batch(batch_idx)
+                spk = (np.asarray([spk_index.get(u, 0) for u in utts])
+                       if spk_index is not None else None)
+                if world > 1:
+                    # satpu's repeat-padding of a short batch, then this
+                    # rank's contiguous block
+                    rows = np.asarray(mesh.repeat_pad_rows(len(frames), world)
+                                      or range(len(frames)))
+                    rows = rows[mesh.local_batch_slice(len(rows), rank, world)]
+                    wavs, frames = wavs[rows], frames[rows]
+                    graphs = {k: np.asarray(v)[rows] for k, v in graphs.items()}
+                    spk = spk[rows] if spk is not None else None
+                kw = {} if spk is None else {"spk_target": torch.from_numpy(spk).to(dev)}
+                metrics = trainer.step(*to_dev(wavs, graphs, frames), **kw)
+                steps += 1
+                if steps % opts.diagnostics_interval == 0 and rank == 0:
+                    scal = {k: float(v) for k, v in metrics.items()}
+                    logging.info("epoch %d step %d objf %.4f (num %.3f den %.3f) lr %.5f",
+                                 epoch, steps, scal["chain_objf"], scal["num_logprob"],
+                                 scal["den_logprob"], scal["lr"])
+                    if valid_ds is not None:
+                        v = valid_objf()
+                        if v is not None:
+                            scal["valid_objf"] = v
+                            logging.info("  valid objf %.4f", v)
+                    metrics_log.write(steps, scal, epoch=epoch)
+                if steps % opts.checkpoint_interval == 0:
+                    save(epoch)
             save(epoch + 1)
         if rank == 0:
             final_combination(opts, model, valid_ds, valid_objf)

@@ -128,7 +128,7 @@ def _train(opts) -> int:
     from ..models.anonymizer import AnonymizationNet
     from ..parallel import mesh, multihost
     from ..utils import kaldi_data
-    from ..utils.metrics import MetricsWriter, profile_steps
+    from ..utils.metrics import MetricsWriter
 
     dev = multihost.local_device(resolve_device(opts.device))
     world, rank = mesh.world(), mesh.rank()
@@ -261,19 +261,18 @@ def _train(opts) -> int:
         n_steps = steps_per_epoch(len(ds), local_bs, world)
         for epoch in range(start_epoch, opts.training_epochs):
             batches = ds.batches(local_bs, epoch=epoch, process_index=rank, process_count=world)
-            with profile_steps(opts.dirname, enabled=None if rank == 0 else False):
-                for batch in itertools.islice(batches, n_steps):
-                    t0 = time.time()
-                    metrics = trainer.train_step(batch_to(batch, dev))
-                    steps += 1
-                    if steps % 50 == 0 and rank == 0:
-                        scal = {k: float(v) for k, v in metrics.items()}
-                        logging.info("Epoch %d Steps %d Gen Loss %.3f Mel err %.3f s/b %.3f",
-                                     epoch + 1, steps, scal["loss_gen_all"],
-                                     scal["mel_spec_error"], time.time() - t0)
-                        metrics_log.write(steps, scal, epoch=epoch)
-                    if steps % opts.checkpoint_interval == 0:
-                        best_val = validate_and_save(epoch, steps, best_val)
+            for batch in itertools.islice(batches, n_steps):
+                t0 = time.time()
+                metrics = trainer.train_step(batch_to(batch, dev))
+                steps += 1
+                if steps % 50 == 0 and rank == 0:
+                    scal = {k: float(v) for k, v in metrics.items()}
+                    logging.info("Epoch %d Steps %d Gen Loss %.3f Mel err %.3f s/b %.3f",
+                                 epoch + 1, steps, scal["loss_gen_all"],
+                                 scal["mel_spec_error"], time.time() - t0)
+                    metrics_log.write(steps, scal, epoch=epoch)
+                if steps % opts.checkpoint_interval == 0:
+                    best_val = validate_and_save(epoch, steps, best_val)
             trainer.epoch += 1
             best_val = validate_and_save(epoch + 1, steps, best_val)
     logging.info("training done at %d steps", steps)

@@ -15,7 +15,8 @@ reverse, recomputing each step from the stored alphas. ``log_leak`` below
 
 On CUDA tensors ``den_fb_forward`` / ``den_fb_backward`` launch the kernels
 of ``csrc/den_fb.cu`` (built on first use; one launch a call, one block per
-batch row running all T frames) and count the calls in their ``launches``.
+batch row running all T frames) and count the calls in the counters
+``k2f.launches`` and ``k2b.launches`` (``utils.trace``).
 The kernels read A's nonzeros, ``den_sparse(A)``, which the caller passes
 (``DenominatorGraph.tensors`` caches it as ``"A_sparse"``); they keep the
 arcs in a block's shared memory when they fit and read them from device
@@ -23,7 +24,8 @@ memory otherwise, and record the placement taken in ``.placement``. On CPU
 tensors the wrappers run the plain versions, the same formulas in PyTorch
 ops over the dense A. ``den_scan`` wraps both in a
 ``torch.autograd.Function`` (gradients flow to llf and lls only: the graph
-tensors are constants); ``den_scan_plain`` is the same function through the
+tensors are constants) whose backward runs in the span ``chain.den_backward``;
+``den_scan_plain`` is the same function through the
 plain versions on any device. The final value
 ``logsumexp(leak(alpha_T) + final)`` stays outside, in ``final_value``.
 """
@@ -36,6 +38,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..utils.trace import count, span
 
 NEG_INF = -1e30
 TINY = 1e-30  # a normal f32: log(TINY) stays finite
@@ -203,7 +207,7 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
     alpha0 [B, S], A [S, S] prob-domain cross transitions, log_self and
     log_init [S]; all float32. On CUDA this launches ``satpu_den_fwd`` once
     over A's nonzeros ``sparse`` (required there; one count in
-    ``den_fb_forward.launches``, the arcs' placement in ``.placement``), on
+    ``k2f.launches``, the arcs' placement in ``.placement``), on
     the CPU it runs ``den_fb_forward_plain``."""
     dev = _check("den_fb_forward", llf=llf, lls=lls, alpha0=alpha0, A=A,
                  log_self=log_self, log_init=log_init)
@@ -225,12 +229,11 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
                                 nnz, place == "shared", torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_fwd launch failed: CUDA error {err}")
-    den_fb_forward.launches += 1
+    count("k2f.launches")
     den_fb_forward.placement = place
     return alphas
 
 
-den_fb_forward.launches = 0
 den_fb_forward.placement = None
 
 
@@ -239,7 +242,7 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
     """K2b: (dllf, dlls) [B, T, S] from g_final = dL/d alpha_T [B, S] and the
     forward's alphas. On CUDA this launches ``satpu_den_bwd`` once over A's
     nonzeros ``sparse`` (required there; one count in
-    ``den_fb_backward.launches``, the arcs' placement in ``.placement``), on
+    ``k2b.launches``, the arcs' placement in ``.placement``), on
     the CPU it runs ``den_fb_backward_plain``."""
     dev = _check("den_fb_backward", g_final=g_final, alphas=alphas, llf=llf, lls=lls,
                  A=A, log_self=log_self, log_init=log_init)
@@ -263,12 +266,11 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
                                 place == "shared", torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_den_bwd launch failed: CUDA error {err}")
-    den_fb_backward.launches += 1
+    count("k2b.launches")
     den_fb_backward.placement = place
     return dllf, dlls
 
 
-den_fb_backward.launches = 0
 den_fb_backward.placement = None
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -315,9 +317,10 @@ class _DenScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_final):
-        alphas, llf, lls, A, log_self, log_init = ctx.saved_tensors
-        dllf, dlls = ctx.backward_fn(g_final.contiguous(), alphas, llf, lls, A, log_self,
-                                     log_init, ctx.log_leak)
+        with span("chain.den_backward"):
+            alphas, llf, lls, A, log_self, log_init = ctx.saved_tensors
+            dllf, dlls = ctx.backward_fn(g_final.contiguous(), alphas, llf, lls, A, log_self,
+                                         log_init, ctx.log_leak)
         return dllf, dlls, None, None, None, None, None, None, None
 
 

@@ -30,6 +30,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .den_fb import NEG_INF, TINY, den_scan, den_sparse, final_value, leak_log
 from .fst import Fst, GraphArrays, fst_to_arrays
 
@@ -253,11 +254,15 @@ def chain_objf_and_grad(chain_out: torch.Tensor, xent_out: Optional[torch.Tensor
     (d num / d chain_out, held constant). Differentiable in chain_out and
     xent_out. Every term divides by ``tot_frames``, this batch's frame count
     unless given (the global batch's under data parallelism, where the loss
-    and each diagnostic are this rank's share)."""
+    and each diagnostic are this rank's share). The numerator and den
+    forwards and the xent posteriors run in the spans ``chain.num_forward``,
+    ``chain.den_forward`` and ``chain.xent_posteriors``."""
     if tot_frames is None:
         tot_frames = _total_frames(chain_out, num_frames)
-    num_ll = num_forward(chain_out, num_graphs, num_frames)
-    den_ll = den_forward(chain_out, den, leaky_hmm_coefficient)
+    with span("chain.num_forward"):
+        num_ll = num_forward(chain_out, num_graphs, num_frames)
+    with span("chain.den_forward"):
+        den_ll = den_forward(chain_out, den, leaky_hmm_coefficient)
     objf = torch.sum(num_ll - den_ll)
     loss = -objf / tot_frames
     metrics = {"chain_objf": (objf / tot_frames).detach(),
@@ -268,7 +273,7 @@ def chain_objf_and_grad(chain_out: torch.Tensor, xent_out: Optional[torch.Tensor
         loss = loss + 0.5 * l2_regularize * l2
         metrics["l2"] = l2.detach()
     if xent_out is not None and xent_regularize > 0:
-        with torch.enable_grad():
+        with span("chain.xent_posteriors"), torch.enable_grad():
             ll = chain_out.detach().requires_grad_(True)
             posts, = torch.autograd.grad(num_forward(ll, num_graphs, num_frames).sum(), ll)
         xent_objf = torch.sum(posts * xent_out) / tot_frames

@@ -49,15 +49,18 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ..models.tdnnf import NaturalAffineTransform, constrain_orthonormal, orthonormal_weights
 from ..models.torchlayers import autocast
 from ..parallel import mesh
+from ..utils import trace
 from . import ngsgd
 from .objf import DenominatorGraph, _total_frames, chain_objf_and_grad
 
-# the profiler ranges of a step, ``chain.<phase>``, in order
+# a step's phases open through this name (``portbench.trace.timed_ranges``
+# times them by putting its own context manager in its place)
+record_function = trace.span
+# the spans of a step, ``chain.<phase>``, in order
 PHASES = ("net_forward", "objective_forward", "objective_backward", "net_backward", "sync",
           "ng", "optimizer")
 # metrics that hold one value on every rank under data parallelism (the rest
@@ -156,8 +159,8 @@ class ChainTrainer:
         The backward runs in two stages, the objective's (numerator and den
         backward, into the detached network outputs) and then the network's:
         the chain rule split at the outputs, so the gradients are those of
-        one ``loss.backward()``. Each phase runs in a profiler range
-        ``chain.<phase>`` (``PHASES``)."""
+        one ``loss.backward()``. Each phase runs in a span ``chain.<phase>``
+        (``PHASES``, ``utils.trace``)."""
         o = self.opts
         self.model.train()
         for p in self.params:
@@ -258,7 +261,7 @@ class ChainTrainer:
              num_frames: torch.Tensor, **model_kwargs) -> Dict[str, torch.Tensor]:
         """One training step; returns its metrics (device tensors) with
         ``loss`` and ``lr``. The update and the orthonormal constraint run
-        in the profiler range ``chain.optimizer``."""
+        in the span ``chain.optimizer``."""
         lr = self.lr_now()
         loss, metrics = self.compute_grads(wav, num_graphs, num_frames, **model_kwargs)
         with record_function("chain.optimizer"):

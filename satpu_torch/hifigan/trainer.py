@@ -15,8 +15,8 @@ The generator runs once a step: the discriminator step reads its output
 detached, the generator step backs up through the same graph (satpu runs it
 twice with the same parameters; the value is the same).
 
-Each phase of a step is a ``torch.profiler.record_function`` range named
-``gan.<phase>`` (``PHASES``).
+Each phase of a step is a span (``utils.trace``) named ``gan.<phase>``
+(``PHASES``).
 
 Under a process group (``parallel.mesh``) each rank trains on its block of
 the global batch: its losses are its shares of the global batch's means,
@@ -31,13 +31,13 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.anonymizer import AnonymizationNet
 from ..parallel import mesh
 from ..models.hifigan import (MultiPeriodDiscriminator, MultiScaleDiscriminator,
                               discriminator_loss, feature_loss, generator_loss)
 from ..ops.mel import mel_spectrogram
+from ..utils.trace import span
 
 PHASES = ("generator", "d_forward", "d_backward", "d_sync", "d_optimizer", "g_forward",
           "g_backward", "g_sync", "g_optimizer")
@@ -146,11 +146,11 @@ class GanTrainer:
         for opt in (self.opt_g, self.opt_d):
             for group in opt.param_groups:
                 group["lr"] = lr
-        with record_function("gan.generator"):
+        with span("gan.generator"):
             y, y_gen = self._generate(batch)
             y3 = y[:, None]
 
-        with record_function("gan.d_forward"):
+        with span("gan.d_forward"):
             yg3 = y_gen.detach()[:, None]
             df_r, df_g, _, _ = self.mpd(y3, yg3)
             ds_r, ds_g, _, _ = self.msd(y3, yg3, update_sn=True)
@@ -158,16 +158,16 @@ class GanTrainer:
         n = mesh.world()
         if mesh.active():
             loss_d = loss_d / n  # this rank's share of the global batch's mean
-        with record_function("gan.d_backward"):
+        with span("gan.d_backward"):
             self.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
         if mesh.active():
-            with record_function("gan.d_sync"):
+            with span("gan.d_sync"):
                 mesh.sum_grads_(self.d_params)
-        with record_function("gan.d_optimizer"):
+        with span("gan.d_optimizer"):
             self.opt_d.step()
 
-        with record_function("gan.g_forward"):
+        with span("gan.g_forward"):
             mel_real = mel_spectrogram(y, **h.mel_kwargs())
             mel_gen = mel_spectrogram(y_gen, **h.mel_kwargs())
             loss_mel = torch.mean(torch.abs(mel_real - mel_gen)) * h.mel_weight
@@ -179,17 +179,17 @@ class GanTrainer:
                       + loss_mel)
             if mesh.active():
                 loss_g, loss_mel = loss_g / n, loss_mel / n
-        with record_function("gan.g_backward"):
+        with span("gan.g_backward"):
             self.opt_g.zero_grad(set_to_none=True)
             # the discriminators take no gradient from the G step
             loss_g.backward(inputs=self.g_params)
         metrics = {"loss_gen_all": loss_g.detach(), "loss_disc_all": loss_d.detach(),
                    "mel_spec_error": loss_mel.detach() / h.mel_weight}
         if mesh.active():
-            with record_function("gan.g_sync"):
+            with span("gan.g_sync"):
                 mesh.sum_grads_(self.g_params)
                 metrics = mesh.sum_metrics(metrics)
-        with record_function("gan.g_optimizer"):
+        with span("gan.g_optimizer"):
             self.opt_g.step()
         self.step += 1
         return {**metrics, "lr": lr}

@@ -9,6 +9,9 @@ waveform:
   nearest interpolation to the BN frame rate, concat with BN and the speaker
   one-hot, CoreHifiGan,
 - ``convert``: get_bn + forward_decoder.
+
+``get_bn`` runs in the span ``anon.extractor``, ``forward_decoder`` in
+``anon.generator`` (``utils.trace``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.nn as nn
 
 from ..ops.cmvn import utt_cmvn_keep_zeros
 from ..ops.yaapt import _merged_params, yaapt_batch
+from ..utils.trace import span
 from .asrbn import TDNNFNet, TDNNFNetConfig
 from .hifigan import CoreHifiGan, CoreHifiGanConfig, apply_f0_transformation
 
@@ -89,23 +93,25 @@ class AnonymizationNet(nn.Module):
 
     def get_bn(self, wav: torch.Tensor) -> torch.Tensor:
         """[B, T] -> [B, bn_dim, T_bn]."""
-        return self.bn_extractor.extract_bn(wav).transpose(1, 2)
+        with span("anon.extractor"):
+            return self.bn_extractor.extract_bn(wav).transpose(1, 2)
 
     def forward_decoder(self, f0: torch.Tensor, bn: torch.Tensor, spk_onehot: torch.Tensor,
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(f0 [B, T_f0], bn [B, C, T_bn], spk_onehot [B, S]) -> wav [B, T_out].
 
         ``generator`` drives the random F0 transformations (awgn)."""
-        if self.cfg.f0_norm == "utt":
-            f0 = utt_cmvn_keep_zeros(f0, var_norm=True)
-        f0 = f0[:, None, :]
-        if self.cfg.f0_transformation:
-            f0 = apply_f0_transformation(f0, self.cfg.f0_transformation, generator)
-        x = torch.cat([bn, interpolate_nearest(f0, bn.shape[-1])], dim=1)
-        if self.cfg.num_speakers > 0:
-            spk = spk_onehot[:, :, None].to(x.dtype).expand(-1, -1, x.shape[-1])
-            x = torch.cat([x, spk], dim=1)
-        return self.hifigan(x)[:, 0]
+        with span("anon.generator"):
+            if self.cfg.f0_norm == "utt":
+                f0 = utt_cmvn_keep_zeros(f0, var_norm=True)
+            f0 = f0[:, None, :]
+            if self.cfg.f0_transformation:
+                f0 = apply_f0_transformation(f0, self.cfg.f0_transformation, generator)
+            x = torch.cat([bn, interpolate_nearest(f0, bn.shape[-1])], dim=1)
+            if self.cfg.num_speakers > 0:
+                spk = spk_onehot[:, :, None].to(x.dtype).expand(-1, -1, x.shape[-1])
+                x = torch.cat([x, spk], dim=1)
+            return self.hifigan(x)[:, 0]
 
     def convert(self, wav: torch.Tensor, f0: torch.Tensor, target_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -14,6 +14,10 @@ dropout after every hidden layer (none in the wav2vec2 net, as in satpu),
 batch statistics, the VQ EMA update, and natural-gradient affines where
 the config asks for them. Random draws (dropout, the DP noise) come from
 the ``generator`` a forward is given (torch's default one if None).
+
+``TDNNFNet`` runs its fbank, CMVN, TDNN-F layers and BN layer (with its VQ)
+in the spans ``asrbn.fbank``, ``asrbn.cmvn``, ``asrbn.tdnnf`` and
+``asrbn.vq`` (``utils.trace``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch.nn as nn
 
 from ..ops.cmvn import utt_cmvn
 from ..parallel import mesh
+from ..utils.trace import span
 from ..ops.fbank import fbank as kaldi_fbank
 from ..ops.fbank import num_frames
 from .tdnnf import (
@@ -138,14 +143,17 @@ class TDNNFNet(nn.Module):
 
         ``lengths`` ([B] valid sample counts) makes a zero-padded batch give
         the same valid frames as per-length runs."""
-        x = kaldi_fbank(wav * 32768.0, num_mel_bins=self.cfg.num_mel_bins, snip_edges=False)
-        if lengths is not None:
-            feat_len = (lengths + 80) // 160
-            x = utt_cmvn(x, lengths=feat_len)
-            x = mask_replicate_tail(x.transpose(1, 2), feat_len).transpose(1, 2)
-        else:
-            x = utt_cmvn(x)
-        return pad_input_replicate(x.transpose(1, 2), self.padding).transpose(1, 2)
+        with span("asrbn.fbank"):
+            x = kaldi_fbank(wav * 32768.0, num_mel_bins=self.cfg.num_mel_bins,
+                            snip_edges=False)
+        with span("asrbn.cmvn"):
+            if lengths is not None:
+                feat_len = (lengths + 80) // 160
+                x = utt_cmvn(x, lengths=feat_len)
+                x = mask_replicate_tail(x.transpose(1, 2), feat_len).transpose(1, 2)
+            else:
+                x = utt_cmvn(x)
+            return pad_input_replicate(x.transpose(1, 2), self.padding).transpose(1, 2)
 
     def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         p = self.cfg.p_dropout
@@ -163,9 +171,11 @@ class TDNNFNet(nn.Module):
         if isinstance(bfunc, DpLaplaceBottleneck):
             bfunc.generator = generator
         drop = (lambda x: self._dropout(x, generator)) if dropout else (lambda x: x)
-        x = drop(self.tdnn1(self.features(wav, lengths).transpose(1, 2)))
-        for layer in self.tdnnfs[:-1]:
-            x = drop(layer(x))
+        x = self.features(wav, lengths).transpose(1, 2)
+        with span("asrbn.tdnnf"):
+            x = drop(self.tdnn1(x))
+            for layer in self.tdnnfs[:-1]:
+                x = drop(layer(x))
         return x
 
     def forward(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None,
@@ -180,13 +190,15 @@ class TDNNFNet(nn.Module):
         the speaker-adversarial tap; as in satpu, the BN layer's TDNN-F then
         runs twice, once for the tap and once for the heads."""
         x = self._stage1(wav, lengths, generator, True)
-        bn = self.tdnnfs[-1](x, return_bottleneck=True) if return_bn else None
-        x = self._dropout(self.tdnnfs[-1](x), generator)
-        x = pad_input_replicate(x, self.padding_after)
-        for layer in self.tdnnfs_after:
-            x = self._dropout(layer(x), generator)
-        chain_out = self.chain_output(self.prefinal_chain(x))
-        xent_out = self.xent_output(self.prefinal_xent(x))
+        with span("asrbn.vq"):
+            bn = self.tdnnfs[-1](x, return_bottleneck=True) if return_bn else None
+            x = self._dropout(self.tdnnfs[-1](x), generator)
+        with span("asrbn.tdnnf"):
+            x = pad_input_replicate(x, self.padding_after)
+            for layer in self.tdnnfs_after:
+                x = self._dropout(layer(x), generator)
+            chain_out = self.chain_output(self.prefinal_chain(x))
+            xent_out = self.xent_output(self.prefinal_xent(x))
         out = (chain_out.transpose(1, 2), torch.log_softmax(xent_out, dim=1).transpose(1, 2))
         if self.training:
             bfunc = self.tdnnfs[-1].tdnn.bottleneck_func
@@ -196,7 +208,9 @@ class TDNNFNet(nn.Module):
     def extract_bn(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] audio -> [B, T_bn, 256] linguistic bottleneck."""
-        x = self.tdnnfs[-1](self._stage1(wav, lengths, generator), return_bottleneck=True)
+        x = self._stage1(wav, lengths, generator)
+        with span("asrbn.vq"):
+            x = self.tdnnfs[-1](x, return_bottleneck=True)
         return x.transpose(1, 2)
 
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..utils.trace import count, span
 from . import device_array
 
 INF = 1e30
@@ -230,7 +231,7 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     """SHC band [F, n_out] of the padded magnitude ``mag`` [F, M] (f32).
 
     On a CUDA tensor this launches the kernel of ``csrc/shc.cu`` (and counts
-    the launch in ``shc_band.launches``); on a CPU tensor it computes the
+    the launch in the counter ``k1.launches``); on a CPU tensor it computes the
     plain version, at any harmonic count. Any other device raises. The
     kernel runs on ``mag``'s card, whichever device is current. The
     kernel takes 1 to ``SHC_MAX_HARMONICS`` harmonics (a CUDA call with more
@@ -271,13 +272,12 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"satpu_shc_band launch failed: CUDA error {err}")
-    shc_band.launches += 1
+    count("k1.launches")
     shc_band.instantiation = _shc_instantiation(n_harm, window_length)
     return out
 
 
 SHC_MAX_HARMONICS = 6  # kMaxH of csrc/shc.cu
-shc_band.launches = 0
 shc_band.instantiation = None
 
 
@@ -439,8 +439,10 @@ def spec_track(filtered_nl: torch.Tensor, energy, vuv, n_frames: int,
     maxpeaks = int(p["shc_maxpeaks"])
     B = filtered_nl.shape[0]
     dev = filtered_nl.device
-    shc = shc_all_frames(filtered_nl, n_frames, frame_size, frame_jump, nfft, p)
-    pk, mr = peaks_frame(shc.reshape(B * n_frames, -1), delta, maxpeaks, p)
+    with span("yaapt.shc"):
+        shc = shc_all_frames(filtered_nl, n_frames, frame_size, frame_jump, nfft, p)
+    with span("yaapt.peaks"):
+        pk, mr = peaks_frame(shc.reshape(B * n_frames, -1), delta, maxpeaks, p)
     pk = pk.reshape(B, n_frames, maxpeaks)
     mr = mr.reshape(B, n_frames, maxpeaks)
     cand_pitch = torch.where(vuv[..., None], pk, 0.0).transpose(1, 2)  # [B, C, F]
@@ -471,7 +473,8 @@ def spec_track(filtered_nl: torch.Tensor, energy, vuv, n_frames: int,
 
     # k1 = dp5_k1 * std/avg is data-dependent, one weight per utterance
     weight_trans = p["dp5_k1"] * std_voiced / avg_voiced
-    voiced_pitch = _dynamic5_traced(vp, vm, num_voiced, weight_trans, p["f0_min"])
+    with span("yaapt.dynamic5"):
+        voiced_pitch = _dynamic5_traced(vp, vm, num_voiced, weight_trans, p["f0_min"])
     voiced_pitch = medfilt(voiced_pitch, k_med, valid_len=num_voiced)
     # fallback when too few voiced candidates
     voiced_pitch = torch.where((num_voiced <= 2)[:, None], 150.0, voiced_pitch)
@@ -732,22 +735,30 @@ def yaapt_batch(x: torch.Tensor, p: Dict[str, float]) -> torch.Tensor:
     """[B, T] f32 audio -> [B, n_frames] F0 (0 = unvoiced), on x's device.
 
     The signal and its square are band-passed as one [2B] batch, and both
-    NCCF time tracks run as one [2B] pass (the merge only regroups rows)."""
-    B = x.shape[0]
-    to_pad, frame_size, frame_jump, nfft = frame_geometry(p)
-    x = F.pad(x, (to_pad, to_pad))
-    size = x.shape[-1]
-
-    filt = bandpass(torch.cat([x, x ** 2], dim=0), p["sr"], p["bp_low"], p["bp_high"])
-    signal_f, nonlin_f = filt[:B], filt[B:]
-
-    energy, vuv, n_frames = nlfer(signal_f, frame_size, frame_jump, nfft, p)
-    spec_pitch, pitch_std = spec_track(nonlin_f, energy, vuv, n_frames,
-                                       frame_size, frame_jump, nfft, p)
-    tp, tm = time_track(filt, torch.cat([spec_pitch, spec_pitch]),
-                        torch.cat([pitch_std, pitch_std]), n_frames, frame_jump, size, p)
-    ref_pitch, ref_merit = refine(tp[:B], tm[:B], tp[B:], tm[B:], spec_pitch, energy, vuv, p)
-    return dynamic_final(ref_pitch, ref_merit, energy, p)
+    NCCF time tracks run as one [2B] pass (the merge only regroups rows).
+    Each stage runs in a span ``yaapt.<stage>`` inside ``yaapt.batch``
+    (``utils.trace``)."""
+    with span("yaapt.batch"):
+        B = x.shape[0]
+        to_pad, frame_size, frame_jump, nfft = frame_geometry(p)
+        x = F.pad(x, (to_pad, to_pad))
+        size = x.shape[-1]
+        with span("yaapt.bandpass"):
+            filt = bandpass(torch.cat([x, x ** 2], dim=0), p["sr"], p["bp_low"], p["bp_high"])
+        signal_f, nonlin_f = filt[:B], filt[B:]
+        with span("yaapt.nlfer"):
+            energy, vuv, n_frames = nlfer(signal_f, frame_size, frame_jump, nfft, p)
+        with span("yaapt.spec_track"):
+            spec_pitch, pitch_std = spec_track(nonlin_f, energy, vuv, n_frames,
+                                               frame_size, frame_jump, nfft, p)
+        with span("yaapt.time_track"):
+            tp, tm = time_track(filt, torch.cat([spec_pitch, spec_pitch]),
+                                torch.cat([pitch_std, pitch_std]), n_frames, frame_jump, size, p)
+        with span("yaapt.refine"):
+            ref_pitch, ref_merit = refine(tp[:B], tm[:B], tp[B:], tm[B:], spec_pitch, energy,
+                                          vuv, p)
+        with span("yaapt.dynamic_final"):
+            return dynamic_final(ref_pitch, ref_merit, energy, p)
 
 
 def yaapt(x, opts: Optional[Dict[str, float]] = None, device="cuda") -> torch.Tensor:

@@ -11,8 +11,8 @@ reference satools/satools/sidekit/{model,objf,monitor}.py).
   before the step, the forward in training mode (batch-statistics batch
   norm, SpecAugment masks from the caller's generator, satpu's bf16 policy
   over the frontend and the trunk with ``compute_dtype="bfloat16"``), the
-  backward, the AdamW step. Its phases are ``torch.profiler.record_function``
-  ranges ``asv.<phase>`` (``PHASES``). Under a process group
+  backward, the AdamW step. Its phases are spans ``asv.<phase>``
+  (``PHASES``, ``utils.trace``). Under a process group
   (``parallel.mesh``) each rank takes a contiguous block of the global
   batch: batch norm and the SpecAugment draws are the global batch's, each
   rank's loss is its share of the global mean, and the gradients are
@@ -32,9 +32,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..parallel import mesh
+from ..utils.trace import span
 from . import scoring
 from .nn import autocast
 
@@ -83,9 +83,9 @@ class AsvTrainer:
         model = self.model.train()
         # the frontend under the policy too: WavLM's convs and linears are
         # trained (the mel and MFCC frontends hold none)
-        with record_function("asv.frontend"), autocast(self.cast):
+        with span("asv.frontend"), autocast(self.cast):
             feats = model.features(wav, generator)
-        with record_function("asv.forward"), autocast(self.cast):
+        with span("asv.forward"), autocast(self.cast):
             x = model.embed(feats)
             loss, logits = model.after_speaker_embedding(x, target=target, m=self.arc_m)
         accuracy = (logits.argmax(dim=-1) == target).float().mean()
@@ -93,15 +93,15 @@ class AsvTrainer:
         if mesh.active():
             # this rank's (equal) block: its share of the global batch's mean
             loss, accuracy = loss / n, accuracy / n
-        with record_function("asv.backward"):
+        with span("asv.backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         metrics = {"loss": loss.detach(), "accuracy": accuracy}
         if mesh.active():
-            with record_function("asv.sync"):
+            with span("asv.sync"):
                 mesh.sum_grads_(self.model.parameters())
                 metrics = mesh.sum_metrics(metrics)
-        with record_function("asv.optimizer"):
+        with span("asv.optimizer"):
             self.optimizer.step()
         self.step += 1
         return metrics

@@ -7,12 +7,11 @@ the ``tensorboard`` package imports, the scalars (and audio / image / text
 samples, and with ``attach_log_handler`` the log records) are mirrored into
 tensorboard event files under ``<exp_dir>/tb`` (``TensorBoardMirror``: raw
 Summary protos, no torch dependency). ``SATPU_TENSORBOARD=0`` switches the
-mirror off. ``profile_steps`` captures a ``torch.profiler`` trace of a block
-into ``<exp_dir>/profile`` when asked (or ``SATPU_PROFILE=1``).
+mirror off. The trainers' spans and the kernels' launch counters are
+``utils.trace``'s.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import os
@@ -203,26 +202,3 @@ class MetricsWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
-
-
-@contextlib.contextmanager
-def profile_steps(exp_dir: str, enabled: Optional[bool] = None):
-    """Capture a ``torch.profiler`` trace of the block (the host, and the
-    card when there is one) into ``<exp_dir>/profile/trace<k>.json`` when
-    enabled (or SATPU_PROFILE=1); yields the profiler, or None when off."""
-    if enabled is None:
-        enabled = os.environ.get("SATPU_PROFILE", "") == "1"
-    if not enabled:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = os.path.join(exp_dir, "profile")
-    os.makedirs(out, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(out, f"trace{len(os.listdir(out))}.json"))

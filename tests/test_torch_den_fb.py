@@ -19,9 +19,16 @@ from satpu_torch.chain import den_fb
 from satpu_torch.chain.fst import Arc
 from satpu_torch.chain.objf import DenominatorGraph
 from satpu_torch.chain.prep import random_bigram_den
+from satpu_torch.utils.trace import counters
 from torch_parity import rel_err
 
 B, T = 3, 7
+
+
+def _launches():
+    """(K2f, K2b) launches counted so far (``utils.trace``'s counters)."""
+    c = counters()
+    return c.get("k2f.launches", 0), c.get("k2b.launches", 0)
 
 
 def _den(kind: str):
@@ -102,9 +109,9 @@ def test_wrappers_run_the_plain_version_on_the_cpu():
     args = (x.index_select(-1, g["pdf_fwd"]), x.index_select(-1, g["pdf_self"]),
             g["start"].expand(B, den.num_states).contiguous(), g["A"], g["log_self"],
             g["log_init"], den_fb.leak_log(1e-5))
-    n_f, n_b = den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches
+    n = _launches()
     assert torch.equal(den_fb.den_scan(*args), den_fb.den_scan_plain(*args))
-    assert (den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches) == (n_f, n_b)
+    assert _launches() == n
     with pytest.raises(ValueError, match="graph tensors"):
         den_fb.den_fb_forward(args[0], args[1], args[2], args[3][:-1], *args[4:])
     with pytest.raises(TypeError, match="float32"):
@@ -177,7 +184,7 @@ def test_den_scan_with_the_sparse_form_on_the_cpu_is_plain():
     ll = np.random.default_rng(6).standard_normal((B, T, P)).astype(np.float32)
     lk = den_fb.leak_log(1e-5)
     a0 = g["start"].expand(B, den.num_states).contiguous()
-    n = (den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches)
+    n = _launches()
     outs = []
     for scan, extra in ((den_fb.den_scan, (g["A_sparse"],)), (den_fb.den_scan_plain, ())):
         x = torch.from_numpy(ll).requires_grad_(True)
@@ -186,7 +193,7 @@ def test_den_scan_with_the_sparse_form_on_the_cpu_is_plain():
         alpha_T.sum().backward()
         outs.append((alpha_T.detach(), x.grad))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
-    assert (den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches) == n
+    assert _launches() == n
     S, cpu = den.num_states, torch.device("cpu")
     arcs, nnz = den_fb._arcs("k", g["A_sparse"], S, cpu, backward=False)
     assert len(arcs) == 3 and nnz == g["A_sparse"].in_src.numel()
@@ -260,15 +267,14 @@ def test_den_cuda_kernels_launch_on_their_tensors_card():
         outs = []
         for scan, extra in ((den_fb.den_scan, (g["A_sparse"],)), (den_fb.den_scan, (g["A_sparse"],)),
                             (den_fb.den_scan_plain, ())):
-            calls = (den_fb.den_fb_forward.launches, den_fb.den_fb_backward.launches)
+            calls = _launches()
             x1, x2 = llf.clone().requires_grad_(True), lls.clone().requires_grad_(True)
             v = den_fb.final_value(scan(x1, x2, a0, *graph, lk, *extra), g["final"],
                                    g["log_init"], lk)
             v.sum().backward()
             outs.append((v.detach(), x1.grad, x2.grad))
             if extra:
-                assert (den_fb.den_fb_forward.launches - calls[0],
-                        den_fb.den_fb_backward.launches - calls[1]) == (1, 1)
+                assert tuple(a - b for a, b in zip(_launches(), calls)) == (1, 1)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 0
     (v, gf, gs), again, (v_p, gf_p, gs_p) = outs

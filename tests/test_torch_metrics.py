@@ -2,9 +2,7 @@
 ``satpu.utils.metrics``): the JSONL lines are satpu's, the tensorboard mirror
 writes scalar, audio, image and text events that tensorboard reads back
 (tensorboard is installed here; the card's machine has none, and then the
-mirror is off), the log handler mirrors records and detaches, and
-``profile_steps`` writes a ``torch.profiler`` trace when asked and nothing
-otherwise."""
+mirror is off), and the log handler mirrors records and detaches."""
 import json
 import logging
 import os
@@ -57,19 +55,3 @@ def test_mirror_off(tmp_path, monkeypatch):
         assert w.tb is None
     assert os.listdir(tmp_path) == ["metrics.jsonl"]
 
-
-def test_profile_steps_writes_a_trace(tmp_path, monkeypatch):
-    from satpu_torch.utils.metrics import profile_steps
-
-    monkeypatch.delenv("SATPU_PROFILE", raising=False)
-    with profile_steps(str(tmp_path)) as prof:
-        assert prof is None
-    assert not os.path.exists(tmp_path / "profile")
-    with profile_steps(str(tmp_path), enabled=True) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.load(open(tmp_path / "profile" / "trace0.json"))
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
-    monkeypatch.setenv("SATPU_PROFILE", "1")
-    with profile_steps(str(tmp_path)):
-        pass
-    assert sorted(os.listdir(tmp_path / "profile")) == ["trace0.json", "trace1.json"]

@@ -69,11 +69,12 @@ def test_shc_plain_matches_gather_branch(F):
 
 def test_shc_band_on_cpu_takes_the_plain_version_and_counts_no_launch():
     from satpu_torch.ops.yaapt import shc_band, shc_band_plain
+    from satpu_torch.utils.trace import counters
 
     mag = torch.from_numpy(_mag(5))
-    before = shc_band.launches
+    before = counters().get("k1.launches", 0)
     out = shc_band(mag, MIN_SHC, I, H, J)
-    assert shc_band.launches == before
+    assert counters().get("k1.launches", 0) == before
     assert torch.equal(out, shc_band_plain(mag, MIN_SHC, I, H, J))
 
 
@@ -151,11 +152,12 @@ def cuda():
 def _card_vs_plain(mag, *args):
     """One kernel call on the card against the plain version: (output, rel)."""
     from satpu_torch.ops.yaapt import shc_band, shc_band_plain
+    from satpu_torch.utils.trace import counters
 
-    before = shc_band.launches
+    before = counters().get("k1.launches", 0)
     out = shc_band(mag, *args)
     torch.cuda.synchronize()
-    assert shc_band.launches == before + 1
+    assert counters().get("k1.launches", 0) == before + 1
     return out, rel_err(out.cpu().numpy(), shc_band_plain(mag, *args).cpu().numpy())
 
 
