@@ -26,11 +26,16 @@ Phases (each prints its lines; any failure exits non-zero with no result):
    on the full-width network's chain output, and on a 4001-state graph
    whose arcs do not fit shared memory (B=4, T=20); checks that two calls
    give the same bits and that a call is one kernel launch in a profiler
-   trace, and times them;
+   trace, and times them; then the numerator forward (K3f) and backward
+   (K3b) kernels against their plain versions at the chain cell's shapes
+   (B=16, T = 247 and 661, its random-walk numerators): the same checks,
+   each timed beside its plain version, and a training step's numerator
+   (one call) against the three plain passes it replaced;
 8. train: builds a chain fixture (den graph, numerator FSTs, 32 + 16
    synthetic 3 s egs) and runs the ``train_asr`` CLI on the card for 4 steps
    of the full-width TDNN-F + VQ-48 with natural gradient; checks the
-   logged objf, that every step launched both den kernels, and that
+   logged objf, that every step launched both den kernels and both
+   numerator kernels, and that
    final.ckpt serves as an ``asrbn_tdnnf`` extractor;
 9. train-cpu: one tiny train step on the card against the port's CPU path;
 10. train-throughput: full-width train steps at B=16 and B=64 x 3 s, then a
@@ -163,7 +168,8 @@ nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
 Usage (from the repository root):  python3 chip_smoke.py
 ``python3 chip_smoke.py --kernel-only`` runs the SHC build and kernel phase
 alone (to time another tree's SHC kernel with the same phase, run this
-file from that tree's root).
+file from that tree's root); ``--num-kernel-only`` the numerator kernels'
+build and their part of phase 7.
 
 ``python3 chip_smoke.py --cards N`` is the multi-card run (satpu's
 ``dryrun_multichip``; N = 4 on a four-H100 host; it refuses with exit 1
@@ -207,13 +213,18 @@ FLAGSHIP = {"asrbn": {"output_dim": 3280, "bottleneck": "vq", "codebook_size": 4
 SPEAKERS = [f"spk{i:03d}" for i in range(247)]
 SLICE_UTTS = [(2.0, 105.0), (3.1, 125.0), (4.2, 145.0), (5.3, 165.0), (6.4, 185.0),
               (7.5, 205.0), (8.6, 225.0), (10.0, 245.0)]  # (seconds, base F0 Hz)
-KERNEL_SOURCES = ("shc", "den_fb")
+KERNEL_SOURCES = ("shc", "den_fb", "num_fb")
 # chain training: the full-scale den graph (a 164-phone bigram, 9 successors
 # each: 3280 pdfs, 1641 states) and 3 s egs (99 output frames)
 DEN_PHONES, DEN_SUCC, NUM_PDFS, DEN_STATES = 164, 9, 3280, 1641
 EG_SECONDS, EG_FRAMES = 3.0, 99
 # a den graph whose arcs do not fit a block's shared memory (4001 states)
 BIG_DEN = (400, 9, 4, 20)  # phones, successors, B, T
+# the numerator kernels at the chain cell's shapes (portbench's
+# chain_libri100_b16): B=16 numerators of random phone walks of the den
+# graph's bigram, a third of the output frames long, at the shortest and the
+# longest of its 12 allowed lengths
+NUM_SHAPES = ((16, 247), (16, 661))
 # the 4-step train_asr run's objf with the earlier den kernels (one launch
 # per frame, products dense over A), measured on an H100
 PER_FRAME_OBJF = [-1.8248, -1.4224, -1.3493, -1.3041]
@@ -749,22 +760,26 @@ def den_check(torch, den_fb, g, ll, lk, name: str):
     return max(v_abs, a_abs), g_abs, llf, lls, alphas
 
 
-def den_launches_per_call(torch, fn) -> int:
-    """Device kernels named den_fwd / den_bwd in a profiler trace of fn(),
-    called inside a profiler range (as the trainer's phases call it)."""
+def launches_per_call(torch, calls) -> list:
+    """For each (kernel name, fn) of ``calls``: the device kernels of that
+    name in one profiler trace of all the calls, each made inside its own
+    profiler range (as the trainer's phases make them). The calls share one
+    trace: a trace taken right after another (K2b's after K2f's) once held
+    no device item at all on an H100, and that reads as a missing launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("den_call"):
-            fn()
+        for k, (_, fn) in enumerate(calls):  # the range's name is a device item too
+            with record_function(f"call {k}"):
+                fn()
         torch.cuda.synchronize()
     device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    n = sum(1 for name in device if "den_fwd" in name or "den_bwd" in name)
-    if n != 1:
+    counts = [sum(1 for item in device if name in item) for name, _ in calls]
+    if counts != [1] * len(calls):
         print(f"[kernel] device items in the trace: {device}")
-    return n
+    return counts
 
 
 def phase_den_kernel(np, torch, den):
@@ -815,10 +830,10 @@ def phase_den_kernel(np, torch, den):
     a_T = alphas[-1].clone().requires_grad_(True)
     den_fb.final_value(a_T, g["final"], g["log_init"], lk).sum().backward()
     g_final = a_T.grad
-    per_call = (
-        den_launches_per_call(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, lk, sp)),
-        den_launches_per_call(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls,
-                                                                    *graph, lk, sp)))
+    per_call = tuple(launches_per_call(torch, (
+        ("den_fwd", lambda: den_fb.den_fb_forward(llf, lls, a0, *graph, lk, sp)),
+        ("den_bwd", lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph, lk,
+                                                   sp)))))
     print(f"[kernel] den kernel launches per call in a profiler trace: K2f {per_call[0]},"
           f" K2b {per_call[1]} (one launch per frame: {T} and {3 * T})")
     check(per_call == (1, 1), f"a den kernel call is not one launch: {per_call}")
@@ -846,6 +861,129 @@ def phase_den_kernel(np, torch, den):
                  max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=b_f, bound_by=by_f),
             dict(entry, name="den_fb_backward", replaces="satpu/chain/pallas_fb.py:278",
                  max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=b_b, bound_by=by_b)]
+
+
+def cell_numerators(np, torch, B: int, T: int, seed: int):
+    """B numerator graphs on the card as the chain cell makes them: random
+    walks of T // 3 phones over the full-scale den graph's bigram."""
+    from satpu_torch.chain.fst import fst_rmepsilon, fst_to_arrays, pad_graph_arrays
+    from satpu_torch.chain.objf import graphs_to_torch
+    from satpu_torch.chain.prep import numerator_fst, random_bigram_den, random_phone_walk
+
+    _, tree, trans = random_bigram_den(DEN_PHONES, DEN_SUCC, seed=0)
+    rng = np.random.default_rng(seed)
+    return graphs_to_torch(pad_graph_arrays(
+        [fst_to_arrays(fst_rmepsilon(numerator_fst(random_phone_walk(trans, max(T // 3, 1), rng),
+                                                   tree)))
+         for _ in range(B)]), "cuda")
+
+
+def phase_num_kernel(np, torch):
+    """K3f and K3b against their plain versions at the chain cell's shapes
+    (NUM_SHAPES, the cell's own graphs, random loglikes): value rel <= 1e-6,
+    posteriors max abs <= 1e-5, two calls bitwise equal, one launch a call
+    in a profiler trace; then each timed beside its plain version, and the
+    numerator of a training step (forward, backward and the xent targets)
+    on the host's clock, one call against the three plain passes the
+    objective ran before. Returns their JSON entries at the longer shape
+    (without the main path's launch counts)."""
+    from satpu_torch.chain import num_fb
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entries = []
+    for B, T in NUM_SHAPES:
+        g = cell_numerators(np, torch, B, T, seed=T)
+        S, E = g["start_logprob"].shape[-1], g["arc_src"].shape[-1]
+        ll = torch.randn((B, T, NUM_PDFS), generator=gen, device="cuda") * 2
+        frames = torch.full((B,), T, dtype=torch.int64, device="cuda")
+        arcs = num_fb.num_arcs(g, NUM_PDFS)
+        L = int(arcs.in_ptr[:, S].max())
+        runs = []
+        for _ in range(2):
+            v, a, m = num_fb.num_fb_forward(ll, g, frames, arcs)
+            runs.append((v, a, m, num_fb.num_fb_backward(ll, g, frames, a, m, v, arcs)))
+        v_p, a_p, _ = num_fb.num_fb_forward_plain(ll, g, frames)
+        posts_p = num_fb.num_fb_backward_plain(ll, g, frames)
+        torch.cuda.synchronize()
+        v, a, m, posts = runs[0]
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        v_abs = (v - v_p).abs().max().item()
+        v_rel = v_abs / v_p.abs().max().item()
+        p_abs = (posts - posts_p).abs().max().item()
+        print(f"[kernel] num_fb K3f+K3b vs plain, the chain cell's numerators B={B} T={T}:"
+              f" S={S}, E={E} ({L} live arcs at most a row), P={NUM_PDFS}; value max abs err"
+              f" {v_abs:.3e}, rel {v_rel:.3e} (tolerance rel 1e-6); posteriors max abs err"
+              f" {p_abs:.3e} (tolerance 1e-5); bitwise equal"
+              f" values and posteriors: {bool(torch.equal(v, v_p))},"
+              f" {bool(torch.equal(posts, posts_p))}; two calls bitwise equal: {same}")
+        check(bool(torch.isfinite(v).all() and torch.isfinite(posts).all()),
+              "num_fb output not finite")
+        check(v_rel <= 1e-6 and p_abs <= 1e-5, "K3f/K3b disagree with their plain versions")
+        check(same, "two calls of the numerator kernels differ")
+        per_call = tuple(launches_per_call(torch, (
+            ("num_fwd", lambda: num_fb.num_fb_forward(ll, g, frames, arcs)),
+            ("num_bwd", lambda: num_fb.num_fb_backward(ll, g, frames, a, m, v, arcs)))))
+        check(per_call == (1, 1), f"a numerator kernel call is not one launch: {per_call}")
+        ms_f = cuda_ms(torch, lambda: num_fb.num_fb_forward(ll, g, frames, arcs), iters=20)
+        ms_b = cuda_ms(torch, lambda: num_fb.num_fb_backward(ll, g, frames, a, m, v, arcs),
+                       iters=20)
+        ms_arcs = cuda_ms(torch, lambda: num_fb.num_arcs(g, NUM_PDFS), iters=20)
+        plain_f = cuda_ms(torch, lambda: num_fb.num_fb_forward_plain(ll, g, frames), iters=2,
+                          warmup=1)
+        plain_b = cuda_ms(torch, lambda: num_fb.num_fb_backward_plain(ll, g, frames), iters=2,
+                          warmup=1)
+        # bytes: the gathered ll read (B T L) and the alphas written
+        # [B, T+1, S]; the backward reads both and writes the dense
+        # posteriors [B, T, P] (the timed call's zero fill and K3b's entries);
+        # operations: about 5 a live arc and frame forward, 10 backward
+        BTL, alph = B * T * L, B * (T + 1) * S
+        b_f, by_f = bound(5 * BTL, 4 * (BTL + alph))
+        b_b, by_b = bound(10 * BTL, 4 * (BTL + alph + B * T * NUM_PDFS))
+        for name, ms, plain, b, by in (("K3f num_fb_forward", ms_f, plain_f, b_f, by_f),
+                                       ("K3b num_fb_backward (and the posteriors' fill; plain:"
+                                        " the forward again and its autograd)", ms_b, plain_b,
+                                        b_b, by_b)):
+            print(f"[kernel] {name} B={B} T={T} S={S} E={E}: {ms * 1e3:.1f} us ="
+                  f" {ms * 1e3 / T:.2f} us a frame (bound {b * 1e3:.1f} us by {by},"
+                  f" {b / ms:.2%} of it); plain version {plain * 1e3:.1f} us")
+        print(f"[kernel] num_arcs (the three stable sorts, once a batch) B={B} E={E}:"
+              f" {ms_arcs * 1e3:.1f} us")
+
+        # a training step's numerator on the host's clock: one num_fb call
+        # and its backward, against the plain forward, its backward and the
+        # xent targets' second plain forward and backward
+        def one_call():
+            x = ll.clone().requires_grad_(True)
+            value, targets = num_fb.num_fb(x, g, frames, posteriors=True)
+            value.sum().backward()
+            return x.grad, targets
+
+        def three_passes():
+            x = ll.clone().requires_grad_(True)
+            num_fb.num_fb_forward_plain(x, g, frames)[0].sum().backward()
+            return x.grad, num_fb.num_fb_backward_plain(ll, g, frames)
+
+        walls = []
+        for fn, n in ((one_call, 10), (three_passes, 2)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n * 1e3)
+        print(f"[kernel] a training step's numerator at B={B} T={T} (wall clock): one num_fb"
+              f" call {walls[0]:.2f} ms, the three plain passes {walls[1]:.1f} ms")
+        err_f, err_b = max(v_abs, (a - a_p).abs().max().item()), p_abs
+        entries = [{"name": "num_fb_forward", "route": "cuda", "replaces": None,
+                    "source": "satpu_torch/csrc/num_fb.cu", "launches": 0, "library_ms": None,
+                    "max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f, "bound_ms": b_f,
+                    "bound_by": by_f},
+                   {"name": "num_fb_backward", "route": "cuda", "replaces": None,
+                    "source": "satpu_torch/csrc/num_fb.cu", "launches": 0, "library_ms": None,
+                    "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": b_b,
+                    "bound_by": by_b}]
+    return entries
 
 
 def den_timing(torch, den_fb, g, llf, lls, lk):
@@ -914,7 +1052,7 @@ def phase_train(np, torch):
           f" {time.perf_counter() - t0:.1f} s")
     exp = os.path.join(WORK, "chain", "exp")
     steps = 4  # 32 egs of one length, B=16: 2 steps an epoch, 2 epochs
-    n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
+    n0 = [kernel_launches(k) for k in ("k2f", "k2b", "k3f", "k3b")]
     t0 = time.perf_counter()
     rc = train_asr.main(["--train-set", fx["data"], "--fst-scp", fx["fst_scp"],
                          "--valid-set", fx["valid"], "--valid-fst-scp", fx["valid_fst_scp"],
@@ -925,12 +1063,14 @@ def phase_train(np, torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"den_fb_forward": kernel_launches("k2f") - n0[0],
-                "den_fb_backward": kernel_launches("k2b") - n0[1]}
+                "den_fb_backward": kernel_launches("k2b") - n0[1],
+                "num_fb_forward": kernel_launches("k3f") - n0[2],
+                "num_fb_backward": kernel_launches("k3b") - n0[3]}
     check(rc == 0, f"train_asr exited {rc}")
     print(f"[train] train_asr on cuda: tdnnf_vq 1024 / VQ-48 / {NUM_PDFS} pdfs, NG on,"
           f" {steps} steps of B=16 x {EG_SECONDS} s + held-out diagnostics every step and"
           f" final combination in {wall:.1f} s (first call, cold); kernel launches {launches}")
-    check(all(n >= steps for n in launches.values()), f"a den kernel was not launched once"
+    check(all(n >= steps for n in launches.values()), f"a chain kernel was not launched once"
           f" a step: {launches}")
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
@@ -4460,6 +4600,11 @@ def main() -> int:
         phase_kernel(np, torch)
         print(f"[done] kernel phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--num-kernel-only"]:  # the numerator kernels' build and phase alone
+        phase_build(("num_fb",))
+        print(json.dumps({"kernels": phase_num_kernel(np, torch)}))
+        print(f"[done] num kernel phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     clock = [t_start]
 
     def lap(path: str) -> None:
@@ -4494,6 +4639,7 @@ def main() -> int:
     lap("serving")
     # chain training: train_asr (kernels K2f, K2b)
     entries += phase_den_kernel(np, torch, den_graph())
+    entries += phase_num_kernel(np, torch)
     train_launches, fx = phase_train(np, torch)
     launches.update(train_launches)
     phase_train_cpu(np, torch)

@@ -62,6 +62,20 @@ def _nonzero_max(x: torch.Tensor) -> torch.Tensor:
     return torch.where(m > NEG_INF / 2, m, torch.zeros_like(m))
 
 
+def rescaled_logsumexp_step(alpha, arc_score_t, src, dst):
+    """One step over a graph given as arc lists (the plain numerator of
+    ``num_fb`` and the per-arc den of ``objf.den_forward``): (alpha' [B, S],
+    m [B, 1]) from alpha [B, S]. arc_score_t [B, E] holds w + ll_t[pdf] of
+    every arc, src/dst [B, E] its states; m is the frame's rescale, held
+    constant."""
+    scores = alpha.gather(-1, src) + arc_score_t
+    m = _nonzero_max(scores).detach()
+    sums = torch.zeros_like(alpha).scatter_add(-1, dst, torch.exp(scores - m))
+    # the floor is a normal f32 (log stays finite), and the clamp keeps the
+    # next step free of -inf
+    return torch.clamp(torch.log(torch.clamp(sums, min=TINY)) + m, min=NEG_INF), m
+
+
 def _leak(alpha: torch.Tensor, log_init: torch.Tensor, log_leak: float):
     """(leaked, lse) with lse = logsumexp(alpha) over states."""
     m0 = _nonzero_max(alpha)

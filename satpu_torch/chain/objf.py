@@ -12,7 +12,9 @@ the frame max flushes to zero, and alphas are clamped at the finite
 - numerator: per-utterance supervision graphs, padded to common [B, E] arc
   tables (``fst.pad_graph_arrays``); a step is a gather of the source alphas
   and a ``scatter_add`` into the destinations; frames past ``num_frames``
-  are identity steps;
+  are identity steps. ``num_fb`` runs it forward and backward (K3f / K3b on
+  the card, one launch each a call; the plain per-frame loop on the CPU)
+  and keeps the posteriors d num / d chain_out;
 - denominator: one shared graph with leaky-HMM smoothing. Chain den graphs
   factor by destination (``DenFactored``): the step becomes one [S, S]
   product plus a self-loop term, run by the den forward-backward kernels of
@@ -20,7 +22,9 @@ the frame max flushes to zero, and alphas are clamped at the finite
   the per-arc recursion;
 - ``chain_objf_and_grad``: (num - den) over frames, the l2 term on the
   chain output, and the xent regularizer with numerator posteriors as soft
-  targets. Gradients come from autograd (the den scan's backward is K2b).
+  targets (computed once, for the targets and the loss's gradient alike).
+  Gradients come from autograd (the numerator's backward scales its
+  posteriors, the den scan's is K2b).
 """
 from __future__ import annotations
 
@@ -31,50 +35,18 @@ import numpy as np
 import torch
 
 from ..utils.trace import span
-from .den_fb import NEG_INF, TINY, den_scan, den_sparse, final_value, leak_log
+from .den_fb import (NEG_INF, den_scan, den_sparse, final_value, leak_log,
+                     rescaled_logsumexp_step)
 from .fst import Fst, GraphArrays, fst_to_arrays
-
-
-def _rescaled_logsumexp_step(alpha, arc_score_t, src, dst):
-    """One per-arc forward step: alpha [B, S] -> [B, S]. arc_score_t [B, E]
-    holds w + ll_t[pdf] of every arc; src/dst [B, E] its states."""
-    scores = alpha.gather(-1, src) + arc_score_t
-    m = scores.amax(dim=-1, keepdim=True).detach()
-    m = torch.where(m > NEG_INF / 2, m, torch.zeros_like(m))
-    sums = torch.zeros_like(alpha).scatter_add(-1, dst, torch.exp(scores - m))
-    # the floor is a normal f32 (log stays finite), and the clamp keeps the
-    # next step free of -inf
-    return torch.clamp(torch.log(torch.clamp(sums, min=TINY)) + m, min=NEG_INF)
-
-
-def fst_forward(loglikes: torch.Tensor, arc_src, arc_dst, arc_pdf, arc_logprob,
-                start_logprob, final_logprob,
-                num_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Log-probability of a batch of FSTs over T frames.
-
-    loglikes [B, T, P]; arc tables [B, E] (int64 indices, f32 log-probs);
-    start/final [B, S]. Frames t >= num_frames[b] are identity steps.
-    Returns [B]."""
-    B, T, _ = loglikes.shape
-    E = arc_pdf.shape[-1]
-    arc_scores = (loglikes.gather(-1, arc_pdf[:, None, :].expand(B, T, E))
-                  + arc_logprob[:, None, :])
-    alpha = torch.clamp(start_logprob, min=NEG_INF)
-    for t in range(T):
-        new_alpha = _rescaled_logsumexp_step(alpha, arc_scores[:, t], arc_src, arc_dst)
-        if num_frames is not None:
-            new_alpha = torch.where((t < num_frames)[:, None], new_alpha, alpha)
-        alpha = new_alpha
-    return torch.logsumexp(torch.clamp(alpha + final_logprob, min=NEG_INF), dim=-1)
+from .num_fb import num_fb
 
 
 def num_forward(loglikes: torch.Tensor, num_graphs: Dict[str, torch.Tensor],
                 num_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Batched numerator log-prob over padded per-utterance graphs: [B]."""
-    g = num_graphs
-    return fst_forward(loglikes, g["arc_src"].long(), g["arc_dst"].long(),
-                       g["arc_pdf"].long(), g["arc_logprob"], g["start_logprob"],
-                       g["final_logprob"], num_frames)
+    """Batched numerator log-prob over padded per-utterance graphs: [B]
+    (``num_fb.num_fb``: K3f, and K3b when a gradient is wanted, on the
+    card)."""
+    return num_fb(loglikes, num_graphs, num_frames)[0]
 
 
 def graphs_to_torch(num_graphs: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -229,7 +201,7 @@ def den_forward(loglikes: torch.Tensor, den: DenominatorGraph,
     arc_scores = (loglikes.index_select(-1, g["arc_pdf"]) + g["arc_logprob"])  # [B, T, E]
     alpha = alpha0
     for t in range(T):
-        alpha = _rescaled_logsumexp_step(leak(alpha), arc_scores[:, t], src, dst)
+        alpha, _ = rescaled_logsumexp_step(leak(alpha), arc_scores[:, t], src, dst)
     return torch.logsumexp(torch.clamp(leak(alpha) + g["final"], min=NEG_INF), dim=-1)
 
 
@@ -254,13 +226,16 @@ def chain_objf_and_grad(chain_out: torch.Tensor, xent_out: Optional[torch.Tensor
     (d num / d chain_out, held constant). Differentiable in chain_out and
     xent_out. Every term divides by ``tot_frames``, this batch's frame count
     unless given (the global batch's under data parallelism, where the loss
-    and each diagnostic are this rank's share). The numerator and den
-    forwards and the xent posteriors run in the spans ``chain.num_forward``,
-    ``chain.den_forward`` and ``chain.xent_posteriors``."""
+    and each diagnostic are this rank's share). The numerator's forward and
+    backward (one ``num_fb`` call: its posteriors are both the xent targets
+    and, scaled, the loss's gradient), the den forward and the xent product
+    run in the spans ``chain.num_forward``, ``chain.den_forward`` and
+    ``chain.xent_posteriors``."""
     if tot_frames is None:
         tot_frames = _total_frames(chain_out, num_frames)
+    xent = xent_out is not None and xent_regularize > 0
     with span("chain.num_forward"):
-        num_ll = num_forward(chain_out, num_graphs, num_frames)
+        num_ll, posts = num_fb(chain_out, num_graphs, num_frames, posteriors=xent)
     with span("chain.den_forward"):
         den_ll = den_forward(chain_out, den, leaky_hmm_coefficient)
     objf = torch.sum(num_ll - den_ll)
@@ -272,11 +247,9 @@ def chain_objf_and_grad(chain_out: torch.Tensor, xent_out: Optional[torch.Tensor
         l2 = torch.sum(chain_out ** 2) / tot_frames
         loss = loss + 0.5 * l2_regularize * l2
         metrics["l2"] = l2.detach()
-    if xent_out is not None and xent_regularize > 0:
-        with span("chain.xent_posteriors"), torch.enable_grad():
-            ll = chain_out.detach().requires_grad_(True)
-            posts, = torch.autograd.grad(num_forward(ll, num_graphs, num_frames).sum(), ll)
-        xent_objf = torch.sum(posts * xent_out) / tot_frames
+    if xent:
+        with span("chain.xent_posteriors"):
+            xent_objf = torch.sum(posts * xent_out) / tot_frames
         loss = loss - xent_regularize * xent_objf
         metrics["xent_objf"] = xent_objf.detach()
     return loss, metrics
