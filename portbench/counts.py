@@ -87,6 +87,31 @@ def k2_bound_s(batch: int, frames: int, states: int, nnz: int) -> Tuple[float, f
 
 
 # ---------------------------------------------------------------------------
+# K3f / K3b: the chain numerator's forward-backward
+# ---------------------------------------------------------------------------
+
+
+def k3_bound_s(frames: int, rows: Sequence[Tuple[int, int, int]]) -> Tuple[float, float]:
+    """(K3f, K3b) on a minibatch of ``frames`` frames whose rows' numerator
+    graphs have (states, live arcs, pdfs on live arcs) ``rows``. The
+    forward makes one multiply-add in the log semiring per live arc, row and
+    frame; the backward two. Bytes: the log-likelihood that each live arc
+    gathers a frame, read once, and each row's alphas [frames + 1, states],
+    which the forward writes and the backward reads; the backward also
+    writes a frame's posterior for each pdf on the row's live arcs. The
+    other posteriors are the zero fill's, a kernel of its own outside
+    ``num_bwd``'s time. The arc tables, the start and final scores, m and
+    the value (under 1% of these bytes at the chain cell's graphs) are left
+    out."""
+    arcs = sum(e for _, e, _ in rows)
+    gathered_and_alphas = 4 * sum(frames * e + (frames + 1) * s for s, e, _ in rows)
+    posteriors = 4 * frames * sum(p for _, _, p in rows)
+    fwd = bound_s(2 * frames * arcs, gathered_and_alphas)
+    bwd = bound_s(4 * frames * arcs, gathered_and_alphas + posteriors)
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 # TDNN-F extractor and HiFi-GAN generator
 # ---------------------------------------------------------------------------
 

@@ -14,7 +14,9 @@ the window then takes the trainer on, batch after batch of
 
 A traced run (``--trace 1``) measures half the window as an untraced run
 does, half with the trainer's ranges timed on the host clock
-(``trace.timed_ranges``), then profiles ``traced_steps`` more steps.
+(``trace.timed_ranges``), then takes ``traced_steps`` more steps with the
+program's span recorder on, then profiles ``traced_steps`` more (the
+profiler slows launch-bound host code for the rest of the process).
 
 The plain reference follows the first three steps from the same weights,
 states, dropout seed and batches, which it reads from the same files
@@ -24,6 +26,7 @@ parameter's change after three steps, by the norm of each parameter.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import shutil
@@ -44,6 +47,20 @@ from portbench.reference import prep as ref_prep
 from portbench.reference import trainer as ref_trainer
 
 CHECK_STEPS = 3
+# the CPU size of the harness's own tests (``tests/tiny.py``)
+TINY_NET = {"output_dim": 16, "hidden_dim": 32, "bottleneck_dim": 16,
+            "prefinal_bottleneck_dim": 16}
+
+
+def tiny(cfg: Dict, mix: Dict):
+    """``cfg`` and ``mix`` cut to CPU size in place (every width and count,
+    the den graph), returned."""
+    cfg["build"].update(TINY_NET, output_dim=40, codebook_size=8)
+    cfg["den_graph"] = {"phones": 5, "successors": 3, "seed": 2}
+    cfg["traced_steps"] = 1
+    mix.update(utterances=8, batch=2, allowed_lengths=2)
+    mix["lengths"].update(mean_s=1.2, min_s=0.8, max_s=1.6)
+    return cfg, mix
 
 
 def write_wav(path: str, x: np.ndarray) -> None:
@@ -115,6 +132,21 @@ class ChainData:
             f.writelines(f"{u} {int(n)}\n" for u, n in zip(self.utts, self.lengths))
         with open(self.fst_scp) as f:
             self.fst_rx = dict(line.split(None, 1) for line in f.read().splitlines())
+
+    def graph(self, utt: str):
+        """The utterance's numerator graph as the reference reads it back
+        from the ark: epsilon-free arrays (``GraphArrays``)."""
+        path, off = self.fst_rx[utt].rsplit(":", 1)
+        with open(path, "rb") as f:
+            f.seek(int(off))
+            return ref_fst.fst_to_arrays(ref_fst.fst_rmepsilon(ref_fst.read_fst_kaldi(f)))
+
+    def graph_size(self, utt: str):
+        """(states, live arcs, pdfs on live arcs) of the utterance's
+        numerator graph."""
+        g = self.graph(utt)
+        live = g.arc_logprob > ref_fst.NEG_INF / 2
+        return g.num_states, int(np.count_nonzero(live)), len(np.unique(g.arc_pdf[live]))
 
 
 def lr_schedule(cfg: Dict, steps_per_epoch: int):
@@ -224,13 +256,7 @@ def reference_steps(torch, cfg: Dict, data: ChainData, batches: List[List[str]],
             if half:
                 utts = utts[:len(utts) // 2]
             wav = np.stack([read_wav(data.wavs[u]) for u in utts])
-            graphs = []
-            for u in utts:
-                path, off = data.fst_rx[u].rsplit(":", 1)
-                with open(path, "rb") as f:
-                    f.seek(int(off))
-                    graphs.append(ref_fst.fst_to_arrays(ref_fst.fst_rmepsilon(
-                        ref_fst.read_fst_kaldi(f))))
+            graphs = [data.graph(u) for u in utts]
             frames = np.array([output_frames(len(x)) for x in wav], np.int32)
             m = tr.step(torch.from_numpy(wav).to(device),
                         ref_objf.graphs_to_torch(ref_fst.pad_graph_arrays(graphs), device),
@@ -368,10 +394,11 @@ def drive(ctx, root) -> Dict:
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    layer = None
+    layer = launches = None
     if ctx.trace:
         # half the window untraced (the rate and MFU), half with the
-        # trainer's ranges timed (the phases), then the traced steps
+        # trainer's ranges timed (the phases), then the recorded steps and
+        # the profiled ones
         from satpu_torch.chain import trainer as program_trainer
 
         t_half = loop(t0, seconds=ctx.seconds / 2)
@@ -382,13 +409,23 @@ def drive(ctx, root) -> Dict:
         with trace.timed_ranges(torch, dev, program_trainer, spans):
             t1 = loop(t_half, seconds=ctx.seconds / 2)
         layer.update(spans=spans.snapshot(), phase_steps=state["steps"] - s_half)
+        with trace.recorded(torch, dev, cfg["traced_steps"]) as rec:
+            loop(t1, steps=cfg["traced_steps"])
+        layer["recorded"], launches = rec.spans, rec.launches
         audio, n_lengths = state["audio"], len(state["lengths"])
-        with trace.profiled(torch, dev) as traced:
+        # the profiled steps' batches, drawn ahead: K3's bound counts their graphs
+        ahead = list(itertools.islice(feed_it, cfg["traced_steps"]))
+        feed_it = itertools.chain(ahead, feed_it)
+        with trace.profiled(torch, dev, trace.program_prefixes()) as traced:
             loop(t1, steps=cfg["traced_steps"])
         layer.update(digest=traced.digest, traced_audio_s=state["audio"] - audio,
+                     profiled_steps=cfg["traced_steps"],
                      den_bound_s=sum(sum(counts.k2_bound_s(len(lens), output_frames(lens[0]),
                                                            data.den.num_states, data.den_nnz))
-                                     for lens in state["lengths"][n_lengths:]))
+                                     for lens in state["lengths"][n_lengths:]),
+                     num_bound_s=sum(sum(counts.k3_bound_s(
+                         output_frames(max(ds.egs[i].num_samples for i in idx)),
+                         [data.graph_size(ds.egs[i].utt) for i in idx])) for idx in ahead))
     else:
         t1 = loop(t0, seconds=ctx.seconds)
     bad = sum(not math.isfinite(float(v)) for v in losses)
@@ -413,4 +450,5 @@ def drive(ctx, root) -> Dict:
     return {"correct": all(c["value"] <= c["limit"] for c in checks.values()),
             "attempted": state["steps"], "failed": bad, "metrics": metrics, "device": device,
             "checks": checks, "breakdown": trace.breakdown(layer and layer["digest"]),
-            "extra": {"tf32": flags, "readings": read}}
+            "extra": {"tf32": flags, "readings": read,
+                      **({"launches": launches} if launches else {})}}

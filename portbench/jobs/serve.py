@@ -21,7 +21,8 @@ of the gap between the two; how many VQ codes none of the sample's frames
 takes is read from the first too.
 
 A traced run (``--trace 1``) measures the window with CUDA events around
-each call and no profiler, then profiles one more pass over the corpus.
+each call and no profiler, then serves one more pass over the corpus with
+the program's span recorder on, then profiles one more.
 """
 from __future__ import annotations
 
@@ -34,6 +35,22 @@ from portbench import counts, gen, harness, trace, weights
 from portbench.reference import anonymizer as ref_anonymizer
 from portbench.reference import precision
 from portbench.reference import yaapt as ref_yaapt
+
+# the CPU size of the harness's own tests (``tests/tiny.py``)
+TINY_ASRBN = {"output_dim": 16, "hidden_dim": 32, "bottleneck_dim": 16,
+              "prefinal_bottleneck_dim": 16}
+TINY_GENERATOR = {"upsample_initial_channel": 32}
+
+
+def tiny(cfg: Dict, mix: Dict):
+    """``cfg`` and ``mix`` cut to CPU size in place (every width and count),
+    returned."""
+    cfg["build"]["asrbn"].update(TINY_ASRBN)
+    cfg["build"].update(num_speakers=3, bn_dim=16, **TINY_GENERATOR)
+    cfg["generator"].update(TINY_GENERATOR)
+    mix.update(utterances=6, batch=2, targets=3, check_utterances=3)
+    mix["lengths"].update(mean_s=1.0, min_s=0.6, max_s=1.8)
+    return cfg, mix
 
 
 def build_program(torch, cfg: Dict, seed: int, device):
@@ -190,19 +207,24 @@ def run(ctx) -> Dict:
             torch.cuda.reset_peak_memory_stats(dev)
         setup_s = time.perf_counter() - ctx.t_start
         t0 = time.perf_counter()
-        layer = None
+        layer = launches = None
         t1 = loop(t0, seconds=ctx.seconds, record=ctx.trace)
         if ctx.trace:
             # the window untraced, with CUDA events around each call, then
-            # one traced pass over the corpus (every shape once)
+            # one pass over the corpus (every shape once) with the program's
+            # recorder on, then one profiled: launch-bound host code runs
+            # slower for the rest of the process once the profiler has run
             spans.resolve()
             layer = {"spans": spans, "audio_s_per_s": state["audio"] / (t1 - t0),
                      "mfu": state["flops"] / (t1 - t0) / counts.PEAK_FLOPS[cfg["peak"]]}
+            with trace.recorded(torch, dev, nb) as rec:
+                loop(t0, batches=nb)
+            layer["recorded"], launches = rec.spans, rec.launches
             audio, state["k1_bound_s"] = state["audio"], 0.0
-            with trace.profiled(torch, dev) as traced:
+            with trace.profiled(torch, dev, trace.program_prefixes()) as traced:
                 loop(t0, batches=nb, ranges=True)
             layer.update(digest=traced.digest, k1_bound_s=state["k1_bound_s"],
-                         traced_audio_s=state["audio"] - audio)
+                         traced_audio_s=state["audio"] - audio, profiled_steps=nb)
     device = harness.device_info(torch, 1) if on_card else {"platform": dev.type}
     if ctx.trace:
         metrics = harness.read_layers(ctx.cell, layer)
@@ -229,7 +251,7 @@ def run(ctx) -> Dict:
     return {"correct": all(c["value"] <= c["limit"] for c in checks.values()),
             "attempted": served, "failed": 0, "metrics": metrics, "device": device,
             "checks": checks, "breakdown": trace.breakdown(layer and layer["digest"]),
-            "extra": {"readings": read}}
+            "extra": {"readings": read, **({"launches": launches} if launches else {})}}
 
 
 def sample(mix: Dict, corpus: Corpus, seed: int) -> List[int]:

@@ -1,0 +1,8 @@
+"""Stream milliseconds per batch of the HiFi-GAN generator: the program's
+``anon.generator`` span, a CUDA event pair, over the corpus pass served
+with the recorder on (``trace.span_ms``)."""
+from portbench.trace import span_ms
+
+
+def read(layer):
+    return span_ms(layer, ("anon.generator",))

@@ -41,6 +41,26 @@ def test_k2_counts_by_hand():
                                   (4 * (8 + 4 * 8 + 48 + 8 + 48) + a) / 3.35e12))
 
 
+def test_k3_counts_by_hand():
+    # two rows: (3 states, 5 live arcs, 4 pdfs on them) and (2, 4, 4); 6 frames
+    f, b = counts.k3_bound_s(frames=6, rows=[(3, 5, 4), (2, 4, 4)])
+    gathered_and_alphas = 4 * (6 * 5 + 7 * 3 + 6 * 4 + 7 * 2)
+    assert f == pytest.approx(max(2 * 6 * 9 / 67e12, gathered_and_alphas / 3.35e12))
+    assert b == pytest.approx(max(4 * 6 * 9 / 67e12,
+                                  (gathered_and_alphas + 4 * 6 * (4 + 4)) / 3.35e12))
+
+
+def test_k3_bound_at_the_chain_cells_longest_batch():
+    """B=16, T=661, each row 221 states, 440 live arcs and 405 pdfs on them
+    (the cell's graphs hold 384-422): the gathered log-likelihoods and the
+    alphas, 28.0 MB; K3b also writes a frame's posterior for each of a row's
+    pdfs, 17.1 MB, and not the dense [B, T, 3280] posteriors, which the zero
+    fill writes outside ``num_bwd``."""
+    f, b = counts.k3_bound_s(661, [(221, 440, 405)] * 16)
+    assert f * 3.35e12 == pytest.approx(4 * 16 * (661 * 440 + 662 * 221))
+    assert (b - f) * 3.35e12 == pytest.approx(17.13e6, rel=1e-3)
+
+
 def net(**kw):
     n = copy.deepcopy(tiny.cell("chain_libri100_b16").config["build"])
     n.update(kw)

@@ -1,12 +1,16 @@
-"""A configuration, a traffic mix and a per-layer metric dropped into their
-folders are found by name, with no file that is there edited."""
+"""A configuration, a traffic mix, a job, a per-layer metric with its case
+and a span family of the program's are found by name, with no file that is
+there edited."""
 import hashlib
 import json
 import os
 import shutil
 
+import pytest
+
+import readercases
 import tiny
-from portbench import harness
+from portbench import harness, trace
 
 
 def digests(root):
@@ -64,3 +68,90 @@ def test_metric_without_workloads_follows_what_it_moves():
     serve = harness.Cell(bench, "anon_libri_b32", tiny.ROOT)
     assert "x.train" in [m["name"] for m in chain.per_layer]
     assert "x.train" not in [m["name"] for m in serve.per_layer]
+
+
+# a job of its own: its CPU cut, and a run that opens a span of a family
+# that no file of the benchmark names, profiled and recorded
+ECHO_JOB = '''"""A job that scales a vector inside one span of the program."""
+from portbench import harness, trace
+
+
+def tiny(cfg, mix):
+    cfg["width"], mix["requests"] = 8, 4
+    return cfg, mix
+
+
+def run(ctx):
+    from satpu_torch.utils.trace import span
+
+    torch, dev = ctx.torch, ctx.device
+    x = torch.ones(ctx.cell.config["width"], device=dev)
+    with trace.profiled(torch, dev, trace.program_prefixes()) as traced:
+        with span("w2v2.attention"):
+            x = x * 2
+    with trace.recorded(torch, dev, 1) as rec:
+        with span("w2v2.attention"):
+            x = x * 2
+    layer = {"digest": traced.digest, "recorded": rec.spans}
+    return {"metrics": harness.read_layers(ctx.cell, layer), "layer": layer,
+            "breakdown": trace.breakdown(traced.digest)}
+'''
+READER = '''from portbench.trace import span_ms
+
+
+def read(layer):
+    return span_ms(layer, ("w2v2.attention",))
+'''
+CASE = '''import readercases as rc
+from readercases import empty  # noqa: F401
+
+EXPECTED = 4.0
+
+
+def layer():
+    return rc.layer(recorded={"steps": 2, "spans": [rc.span("w2v2.attention", 3.0),
+                                                    rc.span("w2v2.attention", 5.0)]})
+'''
+
+
+def test_new_job_metric_and_span_family_arrive_as_new_files(tmp_path, monkeypatch):
+    """In a copy: a configuration whose job is a new file with its own CPU
+    cut, a per-layer metric with its reader and case on spans of a family
+    the digest has never seen, and a declared metric without a case."""
+    pb = tmp_path / "portbench"
+    shutil.copytree(os.path.join(tiny.ROOT, "portbench"), pb,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = digests(pb)
+    (pb / "jobs" / "echo.py").write_text(ECHO_JOB)
+    (pb / "configs" / "echo_w2v2.json").write_text(json.dumps({"job": "echo", "width": 1024}))
+    (pb / "traffic" / "echo_burst.json").write_text(json.dumps({"requests": 4096}))
+    for name in ("w2v2_ms.train", "nocase.train"):
+        (pb / "metrics" / (name + ".py")).write_text(READER)
+    (pb / "metrics" / "cases" / "w2v2_ms.train.py").write_text(CASE)
+    bench = tiny.bench()
+    bench["configs"].append({"name": "echo_w2v2", "source": "x", "reduced": [], "why": "y",
+                             "file": "portbench/configs/echo_w2v2.json"})
+    bench["workloads"].append({"name": "echo_burst", "config": "echo_w2v2",
+                               "traffic": "echo_burst", "chips": 1, "why": "z"})
+    for name in ("w2v2_ms.train", "nocase.train"):
+        bench["per_layer"].append({"name": name, "unit": "ms", "better": "lower",
+                                   "source": "program_span", "layer": "front",
+                                   "moves": "setup_s", "workloads": ["echo_burst"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert digests(pb).items() >= before.items()  # nothing there was changed
+
+    c = tiny.cell("echo_burst", root=str(tmp_path))
+    assert (c.config["width"], c.traffic["requests"]) == (8, 4)
+    readercases.check("w2v2_ms.train", str(tmp_path))
+    with pytest.raises(pytest.fail.Exception, match="'nocase.train' has no case"):
+        readercases.check("nocase.train", str(tmp_path))
+
+    # the program adds the family to its NAMES: the digest names its range
+    from satpu_torch.utils import trace as program
+
+    monkeypatch.setattr(program, "NAMES", program.NAMES + ("w2v2.attention",))
+    out = c.job().run(tiny.context(c))
+    assert "w2v2.attention" in dict(out["breakdown"]["idle_gaps"])
+    assert [s.name for s in out["layer"]["recorded"]["spans"]] == ["w2v2.attention"]
+    monkeypatch.undo()
+    assert "w2v2.attention" not in dict(c.job().run(tiny.context(c))["breakdown"]["idle_gaps"])

@@ -5,8 +5,9 @@ import pytest
 import torch
 
 import tiny
+from portbench import trace
 
-SERVE = {"wav_gap_vs_bf16": 4.5, "vq_codes_unused": 44.0}
+SERVE = {"wav_gap_vs_bf16": 4.5, "vq_codes_unused": 46.0}
 CHAIN = {"loss1_gap": 1e-5, "grad_median_gap": 1e-4, "change_median_gap": 0.1}
 
 
@@ -31,6 +32,22 @@ def chain_run(seed=7):
 def test_sound_runs_are_correct():
     for out in (serve_run(), chain_run()):
         assert out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("name", ["anon_libri_b32", "chain_libri100_b16"])
+def test_traced_run_profiles_and_records_the_program(name):
+    """A ``--trace 1`` run on the CPU: correct, its breakdown's idle time
+    named by the program's span families, and the recorder's stretch
+    reported in ``extra`` (no CUDA events here, so no stream ms to read)."""
+    c = tiny.cell(name, SERVE if name.startswith("anon") else CHAIN)
+    out = c.job().run(tiny.context(c, seconds=0.5, trace=True))
+    assert out["correct"], out["checks"]
+    gaps = dict(out["breakdown"]["idle_gaps"])
+    family = "yaapt." if name.startswith("anon") else "asrbn."
+    assert any(k.startswith(family) for k in gaps), gaps
+    launches = out["extra"]["launches"]
+    assert launches["steps"] >= 1 and all(isinstance(n, int) and n >= 0
+                                          for n in launches.values())
 
 
 def broken_convert(monkeypatch, how):

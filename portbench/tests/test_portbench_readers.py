@@ -1,34 +1,13 @@
-"""The trace digest and every per-layer reader on a synthetic event list."""
+"""The trace digest and every per-layer reader on synthetic event lists and
+layers (each reader's case is ``metrics/cases/<metric>.py``)."""
 from types import SimpleNamespace
 
 import pytest
-from torch.autograd import DeviceType
 
+import readercases
 import tiny
-from portbench import harness, trace
-
-
-def ev(name, start, end, device=False, eid=0, annotation=False):
-    return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start, end=end),
-                           device_type=DeviceType.CUDA if device else DeviceType.CPU, id=eid,
-                           is_user_annotation=annotation)
-
-
-def events():
-    """A 1000 us window: two steps' ranges, launches and device items."""
-    return [
-        ev(trace.WINDOW, 0, 1000),
-        ev("chain.net_forward", 0, 100), ev("chain.objective_forward", 100, 400),
-        ev("chain.objective_backward", 400, 500), ev("chain.net_backward", 500, 600),
-        ev("chain.ng", 600, 650), ev("chain.optimizer", 650, 700),
-        ev("portbench.load", 700, 1000),
-        ev("cudaLaunchKernel", 10, 12, eid=1), ev("gemm_kernel", 20, 90, True, 1),
-        ev("cudaLaunchKernel", 110, 112, eid=2), ev("void den_fwd<4, true>", 120, 170, True, 2),
-        ev("cudaLaunchKernel", 410, 412, eid=3), ev("void den_bwd<4, true>", 420, 470, True, 3),
-        ev("cudaLaunchKernel", 510, 512, eid=4), ev("shc_band_kernel<4, 21>", 515, 535, True, 4),
-        ev("cudaLaunchKernel", 520, 522, eid=5), ev("gemm_kernel", 530, 580, True, 5),
-        ev("chain.net_forward", 0, 0, True, 9, annotation=True),
-    ]
+from portbench import trace
+from readercases import ev, events
 
 
 def test_digest_by_hand():
@@ -54,43 +33,96 @@ def test_digest_by_hand():
     assert b["idle_gaps"][0] == ["portbench.load", 300e-6]
 
 
-def layer():
-    spans = SimpleNamespace(device_ms={"get_f0": [2.0, 4.0], "convert": [5.0]},
-                            host={"load": [1.0, 3.0], "chain.net_forward": [0.1, 0.05],
-                                  "chain.net_backward": [0.05], "chain.objective_forward": [0.3],
-                                  "chain.objective_backward": [0.1], "chain.ng": [0.06],
-                                  "chain.optimizer": [0.04]})
-    # busy 235 us of the trace for 1 ms of audio, at 2 audio-s/s untraced
-    return {"digest": trace.digest(events()), "spans": spans, "phase_steps": 2,
-            "k1_bound_s": 10e-6, "den_bound_s": 25e-6, "mfu": 0.125,
-            "traced_audio_s": 1e-3, "audio_s_per_s": 2.0}
+METRICS = sorted(m["name"] for m in tiny.bench()["per_layer"])
 
 
-EXPECTED = {
-    "f0_span_ms.serve": 3.0, "convert_span_ms.serve": 5.0, "k1_roofline.serve": 50.0,
-    "mfu.serve": 12.5, "idle_share.serve": 53.0, "load_ms.train": 2.0,
-    "net_ms.train": 0.1, "objective_ms.train": 0.2, "ng_opt_ms.train": 0.05,
-    "k2_roofline.train": 25.0, "mfu.train": 12.5, "idle_share.train": 53.0,
-}
+@pytest.mark.parametrize("name", METRICS)
+def test_reader_case(name):
+    """Each declared metric's reader against its case
+    (``metrics/cases/<metric>.py``): the value worked out by hand, and None
+    where it finds nothing."""
+    readercases.check(name)
 
 
-def test_every_declared_metric_has_a_reader_checked_here():
-    assert {m["name"] for m in tiny.bench()["per_layer"]} == set(EXPECTED)
+def program_events():
+    """``events()`` with the program's ranges nested in the benchmark's:
+    YAAPT's stages inside ``portbench.get_f0``, the den's forward inside
+    ``chain.objective_forward``."""
+    return events() + [ev("portbench.get_f0", 500, 600), ev("yaapt.nlfer", 501, 505),
+                       ev("yaapt.dynamic5", 505, 600), ev("chain.den_forward", 105, 300)]
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED))
-def test_reader_by_hand(name):
-    c = harness.Cell(tiny.bench(), "anon_libri_b32", tiny.ROOT)
-    assert c.reader(name).read(layer()) == pytest.approx(EXPECTED[name])
+def test_program_prefixes_name_more_ranges_and_change_no_device_time():
+    from satpu_torch.utils import trace as program
+
+    pre = trace.program_prefixes()
+    assert pre[0] == "portbench." and {"yaapt.", "anon.", "asrbn.", "chain."} <= set(pre)
+    assert len(pre) == 1 + len({n.split(".", 1)[0] for n in program.NAMES})
+    old, new = trace.digest(program_events()), trace.digest(program_events(), pre)
+    for key in ("window_us", "busy_us", "items", "by_op"):
+        assert new[key] == old[key], key
+    assert "yaapt.dynamic5" not in old["inside"]
+    assert [n for n, _ in new["inside"]["yaapt.dynamic5"]] == ["shc_band_kernel<4, 21>",
+                                                               "gemm_kernel"]
+    assert [n for n, _ in new["inside"]["chain.den_forward"]] == ["void den_fwd<4, true>"]
+    assert sum(new["idle_by_range"].values()) == sum(old["idle_by_range"].values())
+    assert dict(trace.breakdown(new)["idle_gaps"])["yaapt.nlfer"] == pytest.approx(4e-6)
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED))
-def test_reader_that_finds_nothing_returns_nothing(name):
-    c = harness.Cell(tiny.bench(), "anon_libri_b32", tiny.ROOT)
-    empty = {"digest": trace.digest([]), "phase_steps": 1, "k1_bound_s": 1e-6,
-             "den_bound_s": 1e-6, "mfu": None, "traced_audio_s": 0.0, "audio_s_per_s": 2.0,
-             "spans": SimpleNamespace(device_ms={}, host={})}
-    assert c.reader(name).read(empty) is None
+def test_program_prefixes_fall_back_where_the_program_lists_no_families(monkeypatch):
+    from satpu_torch.utils import trace as program
+
+    monkeypatch.delattr(program, "NAMES")
+    assert trace.program_prefixes() == trace.DEFAULT_PREFIXES == ("portbench.", "chain.")
+
+
+def test_idle_inside_a_program_span_nested_in_a_benchmark_range():
+    """A 100 us window: ``portbench.get_f0`` 0-80 holds ``yaapt.nlfer`` 10-30
+    and ``yaapt.dynamic_final`` 40-80; the card is busy 12-20 (launched in
+    nlfer) and 45-50 and 60-62 (launched in dynamic_final)."""
+    events = [ev(trace.WINDOW, 0, 100), ev("portbench.get_f0", 0, 80),
+              ev("yaapt.nlfer", 10, 30), ev("yaapt.dynamic_final", 40, 80),
+              ev("cudaLaunchKernel", 11, 12, eid=1), ev("fft", 12, 20, True, 1),
+              ev("cudaLaunchKernel", 41, 42, eid=2), ev("add", 45, 50, True, 2),
+              ev("cudaLaunchKernel", 55, 56, eid=3), ev("min", 60, 62, True, 3)]
+    d = trace.digest(events, trace.program_prefixes())
+    gaps = d["idle_by_range"]
+    # idle: 0-10 and 30-40 under get_f0 alone, 10-12 and 20-30 in nlfer,
+    # 40-45, 50-60, 62-80 in dynamic_final, 80-100 in none
+    assert gaps["portbench.get_f0"] == 20
+    assert gaps["yaapt.nlfer"] == 12
+    assert gaps["yaapt.dynamic_final"] == 33
+    assert gaps["(no range)"] == 20
+    layer = {"digest": d, "profiled_steps": 1}
+    assert trace.launches_inside(layer, ("yaapt.dynamic5", "yaapt.dynamic_final")) == 2
+    # the benchmark's own prefixes see none of it
+    assert "yaapt.dynamic_final" not in trace.digest(events)["idle_by_range"]
+
+
+def test_span_ms_reads_recorded_spans_a_step():
+    spans = [readercases.span("chain.ng", 1.0), readercases.span("chain.ng", None),
+             readercases.span("chain.ng", 3.0), readercases.span("chain.sync", 9.0)]
+    assert trace.span_ms({"recorded": {"spans": spans, "steps": 4}}, ("chain.ng",)) == 1.0
+    assert trace.span_ms({"recorded": {"spans": spans, "steps": 0}}, ("chain.ng",)) is None
+    assert trace.span_ms({"recorded": {"spans": spans, "steps": 4}}, ("chain.den",)) is None
+    assert trace.span_ms({"recorded": None}, ("chain.ng",)) is None
+
+
+def test_recorded_stretch_reports_every_counters_change_and_its_spans():
+    """Every counter the program keeps is reported by its change over the
+    stretch, one it never named before among them, so a new kernel's
+    launches need no edit here."""
+    import torch
+
+    program = trace.program_trace()
+    program.count("portbench_test.before")
+    with trace.recorded(torch, torch.device("cpu"), 3) as rec:
+        with program.span("chain.ng"):
+            pass
+        program.count("portbench_test.new", 2)
+    assert rec.launches["steps"] == 3 and rec.launches["portbench_test.new"] == 2
+    assert rec.launches["portbench_test.before"] == 0
+    assert rec.spans["steps"] == 3 and [s.name for s in rec.spans["spans"]] == ["chain.ng"]
 
 
 def test_timed_ranges_time_a_modules_ranges_and_restore_them():

@@ -1,7 +1,12 @@
 """A traced stretch of a run: ``torch.profiler`` over the CPU and the card,
 digested into what the per-layer readers and the result's ``breakdown``
-use. Also the benchmark's own spans (host clock, or CUDA events on the
-card's stream)."""
+use; a stretch with the program's own span recorder on; and the
+benchmark's own spans (host clock, or CUDA events on the card's stream).
+
+The digest names the host ranges of the benchmark (``portbench.``) and of
+each span family the program lists (``program_prefixes``), so a family
+that the program adds reaches ``breakdown`` and the readers with no edit
+here."""
 from __future__ import annotations
 
 import bisect
@@ -10,6 +15,8 @@ import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 WINDOW = "portbench.window"
+# the ranges a digest names where the program lists no span families
+DEFAULT_PREFIXES = ("portbench.", "chain.")
 
 
 class Spans:
@@ -97,11 +104,55 @@ def timed_ranges(torch, device, module, spans: Spans):
             module.record_function = saved
 
 
+def program_trace():
+    """The program's spans and counters (``satpu_torch.utils.trace``), or
+    None where the program has no such module."""
+    try:
+        from satpu_torch.utils import trace as program
+    except ImportError:
+        return None
+    return program
+
+
+def program_prefixes() -> Tuple[str, ...]:
+    """The digest's range prefixes: ``portbench.`` and each of the
+    program's span families (the first segment of every name in its
+    ``NAMES``); ``DEFAULT_PREFIXES`` where the program lists none."""
+    names = getattr(program_trace(), "NAMES", None)
+    if not names:
+        return DEFAULT_PREFIXES
+    return ("portbench.",) + tuple(sorted({n.split(".", 1)[0] + "." for n in names}))
+
+
 @contextlib.contextmanager
-def profiled(torch, device):
+def recorded(torch, device, steps: int):
+    """Run the block, which serves ``steps`` batches or takes ``steps``
+    steps, with the program's recorder on (a CUDA event pair a span on the
+    card). Yields a holder; on exit its ``spans`` is ``{"spans": the
+    recorded spans, "steps": steps}`` (what ``span_ms`` reads from a
+    layer's ``recorded``) and its ``launches`` the change over the block of
+    every counter that the program keeps, with ``steps``. Both stay None where the program has no
+    recorder."""
+    program = program_trace()
+    holder = type("Recorded", (), {"spans": None, "launches": None})()
+    if not hasattr(program, "recording"):
+        yield holder
+        return
+    before = program.counters()
+    with program.recording(events=device.type == "cuda"):
+        yield holder
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    after = program.counters()
+    holder.spans = {"spans": program.collect(), "steps": steps}
+    holder.launches = {"steps": steps, **{k: n - before.get(k, 0) for k, n in after.items()}}
+
+
+@contextlib.contextmanager
+def profiled(torch, device, prefixes: Sequence[str]):
     """Profile the block (host and, on the card, device activity) inside a
-    ``portbench.window`` range; yields a holder whose ``digest`` is set on
-    exit."""
+    ``portbench.window`` range; yields a holder whose ``digest`` (naming
+    the host ranges that start with one of ``prefixes``) is set on exit."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -111,7 +162,7 @@ def profiled(torch, device):
             yield holder
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-    holder.digest = digest(prof.events())
+    holder.digest = digest(prof.events(), prefixes)
 
 
 def _union(intervals: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -124,7 +175,7 @@ def _union(intervals: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]
     return [(a, b) for a, b in out]
 
 
-def digest(events, ranges_prefixes: Sequence[str] = ("portbench.", "chain.")) -> Dict:
+def digest(events, ranges_prefixes: Sequence[str] = DEFAULT_PREFIXES) -> Dict:
     """From a profiler's events: the traced window, the device items, the
     device's busy time (the union of its items' intervals inside the
     window), the device time by operation, the idle time by the innermost
@@ -187,6 +238,26 @@ def phase_ms(layer: Dict, names) -> Optional[float]:
     ``phase_steps`` steps that timed them."""
     ms = sum(sum(layer["spans"].host.get(n, ())) for n in names)
     return ms / layer["phase_steps"] if ms > 0 and layer.get("phase_steps") else None
+
+
+def span_ms(layer: Dict, names: Sequence[str]) -> Optional[float]:
+    """Stream milliseconds a batch or step of the program's recorded spans
+    ``names`` together (``layer["recorded"]``, from ``recorded``); None
+    where none of them was recorded with its events."""
+    rec = layer.get("recorded")
+    if not rec or not rec["steps"]:
+        return None
+    ms = [s.stream_ms for s in rec["spans"] if s.name in names and s.stream_ms is not None]
+    return sum(ms) / rec["steps"] if ms else None
+
+
+def launches_inside(layer: Dict, names: Sequence[str]) -> Optional[float]:
+    """Device items launched inside the host ranges ``names`` (each item
+    under the innermost named range open at its launch) a batch or step of
+    the profiled stretch (``layer["profiled_steps"]``); None where none."""
+    d, steps = layer.get("digest"), layer.get("profiled_steps")
+    n = sum(len(d["inside"].get(name, ())) for name in names) if d else 0
+    return n / steps if n and steps else None
 
 
 def idle_percent(layer: Dict) -> Optional[float]:
