@@ -1,0 +1,9 @@
+"""Stream milliseconds per step of the wav2vec2 front's forward: the
+program's ``wav2vec2.front`` span (the whole ``Wav2Vec2Model`` forward inside
+``chain.net_forward``), a CUDA event pair, over the steps taken with the
+recorder on (``trace.span_ms``)."""
+from portbench.trace import span_ms
+
+
+def read(layer):
+    return span_ms(layer, ("wav2vec2.front",))

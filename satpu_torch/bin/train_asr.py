@@ -54,6 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import logging
 import math
 import os
@@ -126,6 +127,13 @@ def _check_supported(opts: TrainAsrOpts) -> None:
         raise ValueError(f"unknown compute_dtype {opts.compute_dtype!r}")
     if opts.model.startswith("tdnnf_wav2vec2") and opts.wav2vec2_size not in ("large", "base"):
         raise ValueError(f"unknown wav2vec2_size {opts.wav2vec2_size!r}")
+
+
+def wav2vec2_update_factor(step: int, total_steps: int) -> float:
+    """The wav2vec2 front's update factor at ``step`` of ``total_steps``:
+    1/20 for the first 10% of the steps, 1/5 until 90%, frozen after."""
+    frac = step / float(total_steps)
+    return 1.0 / 20.0 if frac < 0.1 else 1.0 / 5.0 if frac < 0.9 else 0.0
 
 
 def build_params_for(opts: TrainAsrOpts, num_speakers: int = 0):
@@ -238,11 +246,8 @@ def _train(opts: TrainAsrOpts) -> int:
 
     preprocessor_schedule = freeze_filter = None
     if opts.model.startswith("tdnnf_wav2vec2"):
-        def preprocessor_schedule(step: int) -> float:
-            """The wav2vec2 front's update factor: 1/20 for the first 10% of
-            the steps, 1/5 until 90%, frozen after."""
-            frac = step / float(total_steps)
-            return 1.0 / 20.0 if frac < 0.1 else 1.0 / 5.0 if frac < 0.9 else 0.0
+        preprocessor_schedule = functools.partial(wav2vec2_update_factor,
+                                                  total_steps=total_steps)
     if opts.freeze_encoder:
         def freeze_filter(name: str) -> bool:
             parts = name.split(".")

@@ -18,8 +18,21 @@ VoicePrivacy B5 model): the computation graph of HuggingFace's
 
 Layer norms use the biased variance and compute in f32. Activations are
 [B, T, C]; convs run in NCW. Under ``models.torchlayers.autocast(bf16)``
-every conv and linear runs in bf16 and the attention softmax in f32, cast
-back to the logits' dtype, as in satpu.
+every conv and linear runs in bf16.
+
+Attention is one fused call, ``F.scaled_dot_product_attention``, on the
+queries already scaled by 1 / sqrt(head size) (as satpu and HuggingFace
+scale them) with a scale of 1: softmax(q k^T) v, the softmax in f32 inside
+the kernel whatever the operands' dtype. On the card that is the
+memory-efficient kernel in f32 and flash attention under the bf16 policy:
+neither keeps the [B, heads, T', T'] scores or probabilities for the
+backward (one log-sum-exp a row and head), which at wav2vec2-large's 24
+layers, B=16 and 19.86 s egs would take 1.01 GB a layer.
+
+``Wav2Vec2Model``'s forward runs in the span ``wav2vec2.front``; inside it,
+``wav2vec2.conv`` (the feature extractor and the projection), ``wav2vec2.pos_conv``
+and, in each transformer layer, ``wav2vec2.attention`` and ``wav2vec2.ffn`` (each
+block with its layer norm and residual; ``utils.trace``).
 
 Parameter names are HuggingFace's (without its ``wav2vec2.`` prefix), so
 ``convert_wav2vec2`` imports an HF state_dict by folding the positional
@@ -37,6 +50,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from .torchlayers import Conv1d, LayerNorm, Linear
 
 
@@ -164,12 +178,9 @@ class SelfAttention(nn.Module):
             return t.reshape(B, T, H, hd).transpose(1, 2)
 
         q = self.q_proj(x) * (hd ** -0.5)
-        attn = split(q) @ split(self.k_proj(x)).transpose(-1, -2)
-        # f32 softmax under the bf16 policy, cast back to the logits' dtype
-        attn = torch.softmax(attn.to(torch.promote_types(attn.dtype, torch.float32)),
-                             dim=-1).to(attn.dtype)
-        out = (attn @ split(self.v_proj(x))).transpose(1, 2).reshape(B, T, d)
-        return self.out_proj(out)
+        out = F.scaled_dot_product_attention(split(q), split(self.k_proj(x)),
+                                             split(self.v_proj(x)), scale=1.0)
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, d))
 
 
 class FeedForward(nn.Module):
@@ -194,10 +205,14 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pre_norm:
-            x = x + self.attention(self.layer_norm(x))
-            return x + self.feed_forward(self.final_layer_norm(x))
-        x = self.layer_norm(x + self.attention(x))
-        return self.final_layer_norm(x + self.feed_forward(x))
+            with span("wav2vec2.attention"):
+                x = x + self.attention(self.layer_norm(x))
+            with span("wav2vec2.ffn"):
+                return x + self.feed_forward(self.final_layer_norm(x))
+        with span("wav2vec2.attention"):
+            x = self.layer_norm(x + self.attention(x))
+        with span("wav2vec2.ffn"):
+            return self.final_layer_norm(x + self.feed_forward(x))
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -225,7 +240,8 @@ class Encoder(nn.Module):
         self.stable = cfg.do_stable_layer_norm
 
     def forward(self, h: torch.Tensor, num_layers: Optional[int] = None) -> torch.Tensor:
-        h = h + self.pos_conv_embed(h)
+        with span("wav2vec2.pos_conv"):
+            h = h + self.pos_conv_embed(h)
         if not self.stable:
             h = self.layer_norm(h)
         n = len(self.layers) if num_layers is None else num_layers
@@ -258,7 +274,10 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = Encoder(cfg)
 
     def forward(self, wav: torch.Tensor, num_layers: Optional[int] = None) -> torch.Tensor:
-        return self.encoder(self.feature_projection(self.feature_extractor(wav)), num_layers)
+        with span("wav2vec2.front"):
+            with span("wav2vec2.conv"):
+                h = self.feature_projection(self.feature_extractor(wav))
+            return self.encoder(h, num_layers)
 
 
 # ---------------------------------------------------------------------------

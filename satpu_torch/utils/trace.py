@@ -42,6 +42,8 @@ NAMES = (
     "yaapt.peaks", "yaapt.dynamic5", "yaapt.time_track", "yaapt.refine", "yaapt.dynamic_final",
     # BN extractor and generator (models/anonymizer.py, models/asrbn.py)
     "anon.extractor", "anon.generator", "asrbn.fbank", "asrbn.cmvn", "asrbn.tdnnf", "asrbn.vq",
+    # the wav2vec2 front (models/wav2vec2.py)
+    "wav2vec2.front", "wav2vec2.conv", "wav2vec2.pos_conv", "wav2vec2.attention", "wav2vec2.ffn",
     # chain training (chain/trainer.py PHASES, chain/objf.py, chain/den_fb.py)
     "chain.net_forward", "chain.objective_forward", "chain.objective_backward",
     "chain.net_backward", "chain.sync", "chain.ng", "chain.optimizer",
