@@ -7,7 +7,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
    (sm_90a), one nvcc per source, all started together;
 2. kernel: holds the SHC kernel against its plain PyTorch version at the
    serving path's shapes (random and real YAAPT inputs at 8000, 16000 and
-   64000 frames, two calls bitwise equal) and times it at each;
+   64000 frames, two calls bitwise equal) and times it at each; then the
+   Viterbi kernel (K4) against its plain version, bitwise, at B=32 and each
+   serving rung's frames for dynamic5's 4 candidates and dynamic_final's 6,
+   one launch a call, timed beside the plain loop, and a B=32 get_f0 with
+   the kernel and with the plain loop;
 3. slice: builds the flagship anonymizer at full width (TDNNF 1024 + VQ-48,
    3280 outputs, 247 speakers, HiFi-GAN 512, bf16 serving policy; random
    weights from a seed), saves it, and runs the ``anonymize`` CLI on the
@@ -166,10 +170,11 @@ The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the run's JSON verdict. Needs one CUDA card.
 
 Usage (from the repository root):  python3 chip_smoke.py
-``python3 chip_smoke.py --kernel-only`` runs the SHC build and kernel phase
-alone (to time another tree's SHC kernel with the same phase, run this
-file from that tree's root); ``--num-kernel-only`` the numerator kernels'
-build and their part of phase 7.
+``python3 chip_smoke.py --kernel-only NAME`` runs one kernel source's build
+and its kernel phase alone, then prints the kernels line with the launches
+that phase made: ``shc`` (K1; to time another tree's SHC kernel with the
+same phase, run this file from that tree's root), ``viterbi`` (K4, its part
+of phase 2) or ``num_fb`` (K3f/K3b, their part of phase 7).
 
 ``python3 chip_smoke.py --cards N`` is the multi-card run (satpu's
 ``dryrun_multichip``; N = 4 on a four-H100 host; it refuses with exit 1
@@ -213,7 +218,7 @@ FLAGSHIP = {"asrbn": {"output_dim": 3280, "bottleneck": "vq", "codebook_size": 4
 SPEAKERS = [f"spk{i:03d}" for i in range(247)]
 SLICE_UTTS = [(2.0, 105.0), (3.1, 125.0), (4.2, 145.0), (5.3, 165.0), (6.4, 185.0),
               (7.5, 205.0), (8.6, 225.0), (10.0, 245.0)]  # (seconds, base F0 Hz)
-KERNEL_SOURCES = ("shc", "den_fb", "num_fb")
+KERNEL_SOURCES = ("shc", "den_fb", "num_fb", "viterbi")
 # chain training: the full-scale den graph (a 164-phone bigram, 9 successors
 # each: 3280 pdfs, 1641 states) and 3 s egs (99 output frames)
 DEN_PHONES, DEN_SUCC, NUM_PDFS, DEN_STATES = 164, 9, 3280, 1641
@@ -292,7 +297,7 @@ def w2v2_cut():
 
 
 def kernel_launches(kernel: str) -> int:
-    """The launches of ``kernel`` (``k1``, ``k2f``, ``k2b``) the port has
+    """The launches of ``kernel`` (``k1``, ``k2f``, ``k2b``, ...) the port has
     counted so far in this process (``satpu_torch.utils.trace.counters``)."""
     from satpu_torch.utils import trace
 
@@ -422,8 +427,8 @@ def phase_kernel(np, torch):
     """SHC band kernel vs its plain version at F = 8000 (16 utterances of
     10 s), 16000 and 64000 frames (the B=32 and B=128 x 10 s serving
     batches), on random and real YAAPT input, two calls bitwise equal, then
-    timed at each F. Returns the kernel's JSON entry at F = 8000 (without
-    the main path's launch count)."""
+    timed at each F. Returns the kernel's JSON entry at F = 8000 (its
+    ``launches`` set by the caller)."""
     import torch.nn.functional as F
 
     from satpu_torch.models.anonymizer import YAAPT_OPTS
@@ -509,8 +514,102 @@ def phase_kernel(np, torch):
           " (wall clock over 2000 calls at F=4)")
     ms, b, by = timed[n_frames]
     return {"name": "shc_band", "route": "cuda", "source": "satpu_torch/csrc/shc.cu",
-            "replaces": "satpu/ops/yaapt.py:588", "launches": 0, "max_abs_err": worst,
+            "replaces": "satpu/ops/yaapt.py:588", "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def viterbi_inputs(np, torch, B: int, C: int, T: int, seed: int):
+    """(local [B, C, T], trans [B, C, C, T]) on the card as dynamic5 builds
+    them: uniform costs up to a random number of valid frames a row (every
+    frame in row 0), then zero local cost and identity transitions, INF
+    elsewhere."""
+    rng = np.random.default_rng(seed)
+    local = rng.random((B, C, T), dtype=np.float32)
+    trans = rng.random((B, C, C, T), dtype=np.float32) * 3
+    eye = np.eye(C, dtype=bool)[:, :, None]
+    for b, n in enumerate([T] + list(rng.integers(0, T + 1, B - 1))):
+        local[b, :, n:] = 0.0
+        trans[b, :, :, n:] = np.where(eye, 0.0, 1e30)
+    return torch.from_numpy(local).cuda(), torch.from_numpy(trans).cuda()
+
+
+def phase_viterbi_kernel(np, torch):
+    """K4 against its plain version at B=32 and the frames of every serving
+    rung (and a 35 s utterance's 1750), for C = 4 (dynamic5) and 6
+    (dynamic_final, its trans a transposed view as there): paths bitwise
+    equal, one launch a call in a profiler trace, each shape timed beside
+    the plain loop on the card; the wrapper's host time a call; then a B=32
+    x 10 s get_f0 with K4 and with the plain loop. Returns K4's JSON entry at
+    C = 6, T = 1000 (its ``launches`` set by the caller)."""
+    from satpu_torch.bin.pipeline import DEFAULT_BUCKETS
+    from satpu_torch.models.anonymizer import YAAPT_OPTS
+    from satpu_torch.ops import yaapt as Y
+
+    p = Y._merged_params(YAAPT_OPTS)
+    frames = [Y.num_frames(n, p) for n in DEFAULT_BUCKETS] + [1750]
+    B, timed = 32, {}
+    for C in (4, 6):
+        for T in frames:
+            local, trans = viterbi_inputs(np, torch, B, C, T, seed=T + C)
+            if C == 6:
+                trans = trans.transpose(1, 2).contiguous().transpose(1, 2)
+            out = Y.viterbi_path_op(local, trans)
+            same = bool(torch.equal(out, Y.viterbi_path_op(local, trans)))
+            plain = Y.viterbi_path_plain(local.cpu(), trans.cpu())
+            check(bool(torch.equal(out.cpu(), plain)),
+                  f"K4 and the plain Viterbi part at C={C} T={T}")
+            check(same, f"two K4 calls differ at C={C} T={T}")
+            ms = cuda_ms(torch, lambda: Y.viterbi_path_op(local, trans), iters=50)
+            plain_ms = cuda_ms(torch, lambda: Y.viterbi_path_plain(local, trans), iters=3,
+                               warmup=1)
+            # trans and local read once, the path written
+            b, by = bound(0, B * (C * C + C) * T * 4 + B * T * 8)
+            timed[C, T] = (ms, plain_ms, b, by)
+            print(f"[kernel] viterbi_path K4 B={B} C={C} T={T}: {ms * 1e3:.1f} us ="
+                  f" {ms * 1e6 / T:.1f} ns a frame (bound {b * 1e3:.2f} us by {by}, {b / ms:.2%}"
+                  f" of it; the T dependent frames bound it in fact); plain loop on the card"
+                  f" {plain_ms * 1e3:.1f} us; bitwise equal to plain: True")
+    per_call = launches_per_call(torch, (("viterbi_kernel",
+                                          lambda: Y.viterbi_path_op(local, trans)),))
+    check(per_call == [1], f"a K4 call is not one launch: {per_call}")
+    # the wrapper's host time a call: T = 1 calls back to back, so the host
+    # sets the pace
+    small = viterbi_inputs(np, torch, B, 6, 1, seed=0)
+    Y.viterbi_path_op(*small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        Y.viterbi_path_op(*small)
+    torch.cuda.synchronize()
+    print(f"[kernel] viterbi_path host time: {(time.perf_counter() - t0) / 2000 * 1e6:.2f} us a"
+          " call through the registered op (wall clock over 2000 calls at T=1)")
+
+    # get_f0 of a B=32 x 10 s batch with K4 and with the plain loop
+    x = np.stack([voiced_utterance(np, 10.0, 100.0 + 5 * k, seed=k)[0] for k in range(B)])
+    x = torch.from_numpy(x).cuda()
+    n0 = kernel_launches("k4")
+    f0 = Y.yaapt_batch(x, p)
+    check(kernel_launches("k4") - n0 == 2, "a yaapt_batch is not two K4 launches")
+    walls, op = [], Y.viterbi_path_op
+    try:
+        for fn in (op, Y.viterbi_path_plain):
+            Y.viterbi_path_op = fn
+            out = Y.yaapt_batch(x, p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                Y.yaapt_batch(x, p)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / 5 * 1e3)
+            check(bool(torch.equal(out, f0)), "get_f0 with K4 and with the plain loop differ")
+    finally:
+        Y.viterbi_path_op = op
+    print(f"[kernel] get_f0 B={B} x 10 s (wall clock): {walls[0]:.2f} ms with K4,"
+          f" {walls[1]:.2f} ms with the plain loop; F0 bitwise equal")
+    ms, plain_ms, b, by = timed[6, frames[-2]]
+    return {"name": "viterbi_path", "route": "cuda", "source": "satpu_torch/csrc/viterbi.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
 def phase_slice(np, torch):
@@ -550,14 +649,15 @@ def phase_slice(np, torch):
     kaldi_data.write_keyed_text(wav_scp, os.path.join(data, "wav.scp"))
     kaldi_data.write_keyed_text(utt2spk, os.path.join(data, "utt2spk"))
 
-    n0 = kernel_launches("k1")
+    n0 = [kernel_launches(k) for k in ("k1", "k4")]
     t0 = time.perf_counter()
     rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
                          "--target-selection-algorithm", "random_per_utt",
                          "--results-dir", os.path.join(WORK, "out")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"shc_band": kernel_launches("k1") - n0}
+    launches = {"shc_band": kernel_launches("k1") - n0[0],
+                "viterbi_path": kernel_launches("k4") - n0[1]}
     check(rc == 0, f"anonymize exited {rc}")
     audio = sum(s for s, _ in SLICE_UTTS)
     print(f"[slice] anonymize CLI on cuda: {len(SLICE_UTTS)} utterances, {audio:.1f} s of audio"
@@ -886,7 +986,7 @@ def phase_num_kernel(np, torch):
     numerator of a training step (forward, backward and the xent targets)
     on the host's clock, one call against the three plain passes the
     objective ran before. Returns their JSON entries at the longer shape
-    (without the main path's launch counts)."""
+    (their ``launches`` set by the caller)."""
     from satpu_torch.chain import num_fb
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -976,11 +1076,11 @@ def phase_num_kernel(np, torch):
               f" call {walls[0]:.2f} ms, the three plain passes {walls[1]:.1f} ms")
         err_f, err_b = max(v_abs, (a - a_p).abs().max().item()), p_abs
         entries = [{"name": "num_fb_forward", "route": "cuda", "replaces": None,
-                    "source": "satpu_torch/csrc/num_fb.cu", "launches": 0, "library_ms": None,
+                    "source": "satpu_torch/csrc/num_fb.cu", "library_ms": None,
                     "max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f, "bound_ms": b_f,
                     "bound_by": by_f},
                    {"name": "num_fb_backward", "route": "cuda", "replaces": None,
-                    "source": "satpu_torch/csrc/num_fb.cu", "launches": 0, "library_ms": None,
+                    "source": "satpu_torch/csrc/num_fb.cu", "library_ms": None,
                     "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": b_b,
                     "bound_by": by_b}]
     return entries
@@ -1699,8 +1799,8 @@ def gan_dirs(np):
 
 def phase_gan(np, torch, card):
     """The train_vc CLI on the card at hifigan.ini's widths for one epoch;
-    returns the SHC kernel's launches over that run and its largest abs
-    error against the plain version at the run's shapes."""
+    returns K1's and K4's launches over that run by kernel name and K1's
+    largest abs error against the plain version at the run's shapes."""
     from satpu_torch.bin import anonymize, train_vc
     from satpu_torch.hifigan import trainer as gan_trainer
     from satpu_torch.ops import yaapt as Y
@@ -1720,7 +1820,8 @@ def phase_gan(np, torch, card):
 
     exp = os.path.join(root, "exp")
     gan_trainer.GanTrainer.train_step = recording
-    n0 = kernel_launches("k1")
+    counters = {"shc_band": "k1", "viterbi_path": "k4"}
+    n0 = {k: kernel_launches(c) for k, c in counters.items()}
     try:
         t0 = time.perf_counter()
         rc = train_vc.main(["--config", os.path.join(ROOT, GAN_CONFIG), "--train-set",
@@ -1730,14 +1831,16 @@ def phase_gan(np, torch, card):
         wall = time.perf_counter() - t0
     finally:
         gan_trainer.GanTrainer.train_step = step
-    launches = kernel_launches("k1") - n0
+    launches = {k: kernel_launches(c) - n0[k] for k, c in counters.items()}
     check(rc == 0, f"train_vc exited {rc}")
     steps = -(-len(SPEAKERS) // 32)
     print(f"[gan] train_vc on cuda ({GAN_CONFIG}: generator 512, MPD 2/3/5/7/11, MSD x3, B=32,"
           f" segment {GAN_SEGMENT}, f32): fake_epoch over {len(SPEAKERS)} utterances, {steps}"
-          f" steps, validation and checkpoints in {wall:.1f} s (first call, cold); shc_band"
+          f" steps, validation and checkpoints in {wall:.1f} s (first call, cold); kernel"
           f" launches {launches} [{card}]")
-    check(launches >= len(SPEAKERS), f"the warm-up launched shc_band {launches} times")
+    check(launches["shc_band"] >= len(SPEAKERS), f"the warm-up's kernel launches {launches}")
+    check(launches["viterbi_path"] == 2 * launches["shc_band"],
+          f"not two K4 launches a get_f0: {launches}")
     shc_err = gan_shc_check(np, torch, dirs["train"])
     check(len(recorded) == steps, f"{len(recorded)} steps, not {steps}")
     for i, m in enumerate(recorded, 1):
@@ -3505,21 +3608,21 @@ def phase_serve_mesh(np, torch, ckpt):
     the wavs bitwise those of the run without the flag (one device: it runs
     unsharded). Then ``process_data(devices=[cuda:0, cuda:0])`` with the
     flagship in f32, each batch split into two blocks on the card:
-    every waveform within 1e-6 of the unsharded run's, K1 launched once per
-    block. Returns K1's launches."""
+    every waveform within 1e-6 of the unsharded run's, K1 launched once and
+    K4 twice per block. Returns K1's and K4's launches by kernel name."""
     from satpu_torch import infer_helper
     from satpu_torch.bin import anonymize, pipeline
     from satpu_torch.ops import yaapt as Y
     from satpu_torch.utils import kaldi_data
 
     data = os.path.join(WORK, "data")
-    n0 = kernel_launches("k1")
+    counters = {"shc_band": "k1", "viterbi_path": "k4"}
+    n0 = {k: kernel_launches(c) for k, c in counters.items()}
     rc = anonymize.main(["--checkpoint", ckpt, "--directory", data, "--batch-size", "8",
                          "--target-selection-algorithm", "random_per_utt", "--serve-mesh",
                          "true", "--new-datadir-suffix", "_mesh", "--results-dir",
                          os.path.join(WORK, "out_mesh")])
     check(rc == 0, f"anonymize --serve-mesh exited {rc}")
-    total = kernel_launches("k1") - n0
     a = kaldi_data.read_wav_scp(os.path.join(data + "_anon", "wav.scp"))
     b = kaldi_data.read_wav_scp(os.path.join(data + "_mesh", "wav.scp"))
     check(sorted(a) == sorted(b), "serve-mesh wrote other utterances")
@@ -3540,7 +3643,7 @@ def phase_serve_mesh(np, torch, ckpt):
             write(path, x, rate)
 
         pipeline.kaldi_data.write_wav = capture
-        n0 = kernel_launches("k1")
+        n1 = {k: kernel_launches(c) for k, c in counters.items()}
         try:
             pipeline.process_data(model, meta["speakers"], data, os.path.join(WORK, f"mesh_{name}"),
                                   target_selection_algorithm="random_per_utt", batch_size=8,
@@ -3548,19 +3651,23 @@ def phase_serve_mesh(np, torch, ckpt):
             torch.cuda.synchronize()
         finally:
             pipeline.kaldi_data.write_wav = write
-        launches[name] = kernel_launches("k1") - n0
-    total += sum(launches.values())
+        launches[name] = {k: kernel_launches(c) - n1[k] for k, c in counters.items()}
+    total = {k: kernel_launches(c) - n0[k] for k, c in counters.items()}
     worst = max(float(np.abs(outs["two"][u] - outs["one"][u]).max()) for u in outs["one"])
     print(f"[serve-mesh] process_data over [cuda:0, cuda:0] (the flagship in f32, a batch of 8"
           f" in two blocks): {len(outs['two'])} wavs within {worst:.3e} of the unsharded run's;"
-          f" K1 launches {launches['two']} split, {launches['one']} unsharded")
+          f" launches {launches['two']} split, {launches['one']} unsharded")
     check(sorted(outs["two"]) == sorted(outs["one"]) and worst <= 1e-6,
           f"two replicas depart by {worst:.3e}")
-    check(launches["two"] == 2 * launches["one"] > 0, f"K1 launches {launches}")
+    for name in counters:
+        check(launches["two"][name] == 2 * launches["one"][name] > 0,
+              f"{name} launches {launches}")
+    check(launches["two"]["viterbi_path"] == 2 * launches["two"]["shc_band"],
+          f"not two K4 launches a block: {launches}")
     return total
 
 
-# what the exported program's process loads: K1's op registration and the
+# what the exported program's process loads: K1's and K4's op registrations and the
 # recorder its wrapper counts launches in (``satpu_torch.utils`` imports the
 # host utilities beside it); no model code
 EXPORT_MODULES = ["satpu_torch", "satpu_torch.ops", "satpu_torch.ops.yaapt", "satpu_torch.utils",
@@ -3578,11 +3685,12 @@ load_s = time.perf_counter() - t0
 io = torch.load(sys.argv[2])
 wav, tid = io["wav"].cuda(), io["tid"].cuda()
 from satpu_torch.utils import trace
-n0 = trace.counters().get("k1.launches", 0)
+counters = {"shc_band": "k1.launches", "viterbi_path": "k4.launches"}
+n0 = {k: trace.counters().get(c, 0) for k, c in counters.items()}
 with torch.no_grad():
     out = prog(wav, tid)
     torch.cuda.synchronize()
-    launches = trace.counters().get("k1.launches", 0) - n0
+    launches = {k: trace.counters().get(c, 0) - n0[k] for k, c in counters.items()}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
@@ -3601,10 +3709,11 @@ def phase_export(np, torch, card, ckpt):
     """``hub.export_convert`` of the flagship anonymizer (bf16 serving
     policy) at B=EXPORT_BATCH x EXPORT_SECONDS: export wall time, then the
     .pt2 loaded with ``torch.export.load`` in a fresh process that imports
-    only the SHC op's registration and run on the same input: load time,
-    K1's launches inside the program, its departure from eager (held to the
-    bf16 serving rule, rel 2e-2), and audio-seconds per second exported and
-    eager. Returns K1's launches in the exported program."""
+    only the ops' registrations and run on the same input: load time, K1's
+    and K4's launches inside the program, its departure from eager (held to
+    the bf16 serving rule, rel 2e-2), and audio-seconds per second exported
+    and eager. Returns K1's and K4's launches in the exported program by
+    kernel name."""
     from satpu_torch import hub, infer_helper
 
     model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args(),
@@ -3632,13 +3741,16 @@ def phase_export(np, torch, card, ckpt):
     audio = B * EXPORT_SECONDS
     print(f"[export] flagship convert (bf16 serving) at B={B} x {EXPORT_SECONDS} s: exported in"
           f" {export_s:.1f} s ({os.path.getsize(path) / 2**20:.1f} MiB); a fresh process"
-          f" importing {res['modules']} loaded it in {res['load_s']:.1f} s; K1 launches inside"
+          f" importing {res['modules']} loaded it in {res['load_s']:.1f} s; launches inside"
           f" the program {res['launches']}; departure from eager {res['max_abs']:.3e} abs,"
           f" rel {res['rel']:.3e}; {audio / res['ms'] * 1e3:.1f} audio-s/s exported,"
           f" {audio / eager_ms * 1e3:.1f} eager [{card}]")
     check(res["modules"] == EXPORT_MODULES,
           f"the exported program's process imported {res['modules']}")
-    check(res["launches"] >= 1, "the exported program did not launch K1")
+    n = res["launches"]
+    check(n["shc_band"] >= 1, "the exported program did not launch K1")
+    check(n["viterbi_path"] == 2 * n["shc_band"], f"the exported program's launches {n}:"
+          " not two K4 a get_f0")
     check(res["rel"] <= 2e-2, f"exported convert departs from eager by rel {res['rel']:.3e}")
     return res["launches"]
 
@@ -4561,6 +4673,14 @@ def cards_main(np, torch, n: int, card: str, lap, parts=CARD_PARTS) -> None:
     check(not failed, "the multi-card run:\n" + "\n".join(failed))
 
 
+# ``--kernel-only NAME``: a source's kernel phase and the counter of each
+# entry it returns
+KERNEL_PHASES = {"shc": (phase_kernel, {"shc_band": "k1"}),
+                 "viterbi": (phase_viterbi_kernel, {"viterbi_path": "k4"}),
+                 "num_fb": (phase_num_kernel, {"num_fb_forward": "k3f",
+                                               "num_fb_backward": "k3b"})}
+
+
 def main() -> int:
     import torch
 
@@ -4595,15 +4715,21 @@ def main() -> int:
     print(f"[card] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, torch"
           f" {torch.__version__}, CUDA {torch.version.cuda} [{card}]")
     t_start = time.perf_counter()
-    if sys.argv[1:] == ["--kernel-only"]:  # the SHC kernel's build and phase alone
-        phase_build(("shc",))
-        phase_kernel(np, torch)
-        print(f"[done] kernel phase passed in {time.perf_counter() - t_start:.1f} s")
-        return 0
-    if sys.argv[1:] == ["--num-kernel-only"]:  # the numerator kernels' build and phase alone
-        phase_build(("num_fb",))
-        print(json.dumps({"kernels": phase_num_kernel(np, torch)}))
-        print(f"[done] num kernel phase passed in {time.perf_counter() - t_start:.1f} s")
+    if sys.argv[1:2] == ["--kernel-only"]:  # one kernel source's build and phase alone
+        name = sys.argv[2] if len(sys.argv) == 3 else None
+        if name not in KERNEL_PHASES:
+            print(f"chip_smoke --kernel-only {{{','.join(KERNEL_PHASES)}}}", file=sys.stderr)
+            return 1
+        phase, counters = KERNEL_PHASES[name]
+        phase_build((name,))
+        n0 = {c: kernel_launches(c) for c in counters.values()}
+        entries = phase(np, torch)
+        entries = entries if isinstance(entries, list) else [entries]
+        for entry in entries:  # the launches this phase made, as counted by the wrapper
+            c = counters[entry["name"]]
+            entry["launches"] = kernel_launches(c) - n0[c]
+        print(json.dumps({"kernels": entries}))
+        print(f"[done] {name} kernel phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     clock = [t_start]
 
@@ -4631,7 +4757,7 @@ def main() -> int:
     phase_build()
     lap("build")
     # serving: anonymize (kernel K1)
-    entries = [phase_kernel(np, torch)]
+    entries = [phase_kernel(np, torch), phase_viterbi_kernel(np, torch)]
     launches, ckpt = phase_slice(np, torch)
     phase_cpu(np, torch, ckpt)
     phase_throughput(torch, ckpt, card)
@@ -4649,11 +4775,12 @@ def main() -> int:
     graph, paths = phase_eval(np, torch, card)
     phase_eval_throughput(np, torch, graph, paths, card)
     lap("evaluation")
-    # GAN training: train_vc (its feature warm-up runs kernel K1)
+    # GAN training: train_vc (its feature warm-up runs kernels K1 and K4)
     gan_launches, gan_shc_err = phase_gan(np, torch, card)
-    print(f"[kernels] shc_band launches by path: anonymize {launches['shc_band']}, train_vc"
-          f" {gan_launches} (their sum in the kernels line)")
-    launches["shc_band"] += gan_launches
+    for name, n in gan_launches.items():
+        print(f"[kernels] {name} launches by path: anonymize {launches[name]}, train_vc {n}"
+              " (their sum in the kernels line)")
+        launches[name] += n
     shc = next(e for e in entries if e["name"] == "shc_band")
     shc["max_abs_err"] = max(shc["max_abs_err"], gan_shc_err)
     phase_gan_cpu(np, torch)
@@ -4688,7 +4815,7 @@ def main() -> int:
     phase_distribution(np, torch, card, ckpt)
     lap("distribution")
     # scale-out: data-parallel training (K2f, K2b in the ranks' chain steps),
-    # the serving mesh and the exported anonymizer (K1)
+    # the serving mesh and the exported anonymizer (K1, K4)
     for name, n in phase_dp_train(np, torch, card, fx).items():
         launches[name] += n
     lap("dp-train")
@@ -4699,9 +4826,11 @@ def main() -> int:
     # the rest of satpu's surface (no kernel of its own)
     phase_surface(np, torch, card, paths, ckpt)
     lap("surface")
-    print(f"[kernels] shc_band launches of the scale-out paths: serve-mesh {mesh_launches},"
-          f" the exported program {export_launches} (in the kernels line)")
-    launches["shc_band"] += mesh_launches + export_launches
+    for name in mesh_launches:
+        print(f"[kernels] {name} launches of the scale-out paths: serve-mesh"
+              f" {mesh_launches[name]}, the exported program {export_launches[name]} (in the"
+              " kernels line)")
+        launches[name] += mesh_launches[name] + export_launches[name]
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     shutil.rmtree(WORK, ignore_errors=True)

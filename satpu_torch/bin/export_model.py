@@ -8,7 +8,8 @@ num_samples)``, on ``--device`` (CUDA unless ``--device cpu``), saved as a
 ``.pt2`` program, the model as its checkpoint holds it (as satpu loads it).
 The program runs with none of the model's code:
 ``satpu_torch.hub.load_exported(path)`` (it needs the ``satpu_torch::
-shc_band`` op registered, which that function imports).
+shc_band`` and ``satpu_torch::viterbi_path`` ops registered, which that
+function imports).
 
 Usage (from the repository root):
   python -m satpu_torch.bin.export_model --checkpoint exp/hifigan/g_best.ckpt \\

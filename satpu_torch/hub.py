@@ -19,8 +19,9 @@ may be a port checkpoint or a satpu one: ``load_model`` reads both.
 analog): ``torch.export`` of the anonymizer's F0 + convert (or of an
 extractor's ``loglikes`` / ``extract_bn``) at fixed shapes, saved as a
 ``.pt2`` file; ``load_exported`` runs it with none of the model's code.
-YAAPT's SHC band is the registered op ``satpu_torch::shc_band`` in the
-program (its kernel on the card), so loading needs that op registered:
+YAAPT's SHC band and its two Viterbi DPs are the registered ops
+``satpu_torch::shc_band`` and ``satpu_torch::viterbi_path`` in the program
+(their kernels on the card), so loading needs those ops registered:
 ``import satpu_torch.ops.yaapt`` first. satpu's StableHLO export runs with
 plain jax instead.
 """
@@ -148,9 +149,10 @@ def export_fn(model: torch.nn.Module, fn, example_args, path: str) -> str:
 
 def load_exported(path: str):
     """Load an exported program; returns a callable module (it runs with
-    none of the model's code). The ``satpu_torch::shc_band`` op must be
-    registered: this function imports its registration."""
-    from .ops import yaapt  # noqa: F401  registers satpu_torch::shc_band
+    none of the model's code). The ``satpu_torch::shc_band`` and
+    ``satpu_torch::viterbi_path`` ops must be registered: this function
+    imports their registration."""
+    from .ops import yaapt  # noqa: F401  registers the satpu_torch:: ops
 
     return torch.export.load(path).module()
 

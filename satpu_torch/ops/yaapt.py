@@ -9,7 +9,9 @@ The whole tracker runs on the device of its input, batched over utterances:
   band is the hand-written CUDA kernel ``csrc/shc.cu`` (``shc_band``),
 - the two dynamic programs (dynamic5 over the compacted voiced frames and
   the final candidate Viterbi) as batched sequential Viterbi passes with
-  identity-transition padding, so compaction keeps a static shape.
+  identity-transition padding, so compaction keeps a static shape; each is
+  one launch of the hand-written CUDA kernel ``csrc/viterbi.cu``
+  (``viterbi_path``).
 
 Everything stays in full f32: single-pass bf16 (and so TF32) flips octaves.
 The reference quirks that ``satpu.ops.yaapt`` reproduces are reproduced
@@ -153,14 +155,11 @@ def linear_resample_compact(x: torch.Tensor, num_valid: torch.Tensor, out_len: i
     return x.gather(1, lo) * (1.0 - frac) + x.gather(1, hi) * frac
 
 
-def viterbi_path(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
-    """Lowest-cost candidate path per row, sequential over frames.
-
-    local [B, C, T]; trans [B, C, C, T] with trans[b, next, prev, t].
-    Returns [B, T] candidate indices. Ties go to the LAST minimum like the
-    reference: torch.min/argmin return the first, so the DP runs in
-    flipped candidate coordinates.
-    """
+def viterbi_path_plain(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``viterbi_path``: a loop over frames. Ties go to the
+    LAST minimum like the reference: torch.min/argmin return the first, so
+    the DP runs in flipped candidate coordinates (and a NaN cost wins, the
+    last NaN over the others)."""
     B, C, T = local.shape
     lf = local.flip(1).permute(2, 0, 1).contiguous()                # [T, B, C]
     tf = trans.flip(1).flip(2).permute(3, 0, 1, 2).contiguous()     # [T, B, C, C]
@@ -176,6 +175,90 @@ def viterbi_path(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
         cur = k.gather(1, cur)
         path.append(cur)
     return (C - 1) - torch.cat(path[::-1], dim=1)
+
+
+def viterbi_path(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """Lowest-cost candidate path per row, sequential over frames.
+
+    local [B, C, T]; trans [B, C, C, T] with trans[b, next, prev, t]; both
+    f32, T >= 1. Returns [B, T] int64 candidate indices. Ties go to the LAST
+    minimum like the reference.
+
+    On a CUDA tensor this launches the kernel of ``csrc/viterbi.cu`` (K4: the
+    forward and the backtrace in one launch, counted in ``k4.launches``),
+    whose path is the plain version's bit for bit; it takes up to
+    ``VITERBI_MAX_CANDIDATES`` candidates (more raise ValueError), reads both
+    inputs through their strides (a transposed view is not copied) and runs
+    on their card, whichever device is current. C = 4 and 6 run unrolled
+    instantiations, any other C the generic one. On a CPU tensor it computes
+    the plain version, at any C. Any other device raises.
+    """
+    if local.ndim != 3 or trans.ndim != 4:
+        raise ValueError(f"viterbi_path wants local [B, C, T] and trans [B, C, C, T], got"
+                         f" {tuple(local.shape)} and {tuple(trans.shape)}")
+    B, C, T = local.shape
+    if tuple(trans.shape) != (B, C, C, T) or C < 1 or T < 1:
+        raise ValueError(f"viterbi_path wants trans [B, C, C, T] = {(B, C, C, T)} with C, T >= 1,"
+                         f" got {tuple(trans.shape)}")
+    if local.dtype != torch.float32 or trans.dtype != torch.float32:
+        raise TypeError(f"viterbi_path wants float32, got {local.dtype} and {trans.dtype}")
+    if trans.device != local.device:
+        raise ValueError(f"viterbi_path's inputs are on {local.device} and {trans.device}")
+    if local.device.type == "cpu":
+        return viterbi_path_plain(local, trans)
+    if local.device.type != "cuda":
+        raise ValueError(f"viterbi_path runs on cpu or cuda, not {local.device}")
+    if C > VITERBI_MAX_CANDIDATES:
+        raise ValueError(f"the Viterbi kernel takes 1..{VITERBI_MAX_CANDIDATES} candidates,"
+                         f" got {C}")
+    path = torch.empty((B, T), device=local.device, dtype=torch.int64)
+    if B == 0:
+        return path
+    lib = _viterbi_lib()
+    scratch = lib.satpu_viterbi_scratch_bytes(C, T)
+    back = torch.empty((B, scratch), device=local.device, dtype=torch.uint8) if scratch else None
+    # the C entry point launches on the current device
+    with torch.cuda.device(local.device):
+        err = lib.satpu_viterbi_path(local.data_ptr(), *local.stride(), trans.data_ptr(),
+                                     *trans.stride(), path.data_ptr(),
+                                     back.data_ptr() if scratch else None, B, C, T,
+                                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"satpu_viterbi_path launch failed: CUDA error {err}")
+    count("k4.launches")
+    return path
+
+
+VITERBI_MAX_CANDIDATES = 16  # kMaxC of csrc/viterbi.cu
+
+
+@torch.library.custom_op("satpu_torch::viterbi_path", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def viterbi_path_op(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """``viterbi_path`` as the registered op ``torch.ops.satpu_torch.viterbi_path``
+    (K4 on a CUDA tensor, the plain version on a CPU one), which both DPs
+    call, so ``torch.export`` records one op where it would unroll the plain
+    loop, and the exported program launches K4 on the card."""
+    return viterbi_path(local, trans)
+
+
+@viterbi_path_op.register_fake
+def _viterbi_path_fake(local, trans):
+    return local.new_empty((local.shape[0], local.shape[2]), dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _viterbi_lib():
+    from ..utils import cuda_build
+
+    lib = cuda_build.load("viterbi")
+    lib.satpu_viterbi_path.restype = ctypes.c_int
+    lib.satpu_viterbi_path.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.satpu_viterbi_scratch_bytes.restype = ctypes.c_longlong
+    lib.satpu_viterbi_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +597,7 @@ def _dynamic5_traced(pitch_array, merit_array, num_valid, k1, f0_min):
     local = torch.where(tmask[:, None, :], local, 0.0)
     pad_trans = torch.where(torch.eye(C, device=dev, dtype=torch.bool), 0.0, INF)
     trans = torch.where(tmask[:, None, None, :], trans, pad_trans[None, :, :, None])
-    path = viterbi_path(local, trans)
+    path = viterbi_path_op(local, trans)
     return pitch_array.gather(1, path[:, None, :])[:, 0]
 
 
@@ -702,7 +785,7 @@ def dynamic_final(ref_pitch, ref_merit, energy, p: Dict[str, float]):
     trans = trans / p["dp_w4"]
     # the reference tensor is indexed [prev, next]; viterbi_path wants
     # [next, prev]
-    path = viterbi_path(local, trans.transpose(1, 2))
+    path = viterbi_path_op(local, trans.transpose(1, 2))
     return ref_pitch.gather(1, path[:, None, :])[:, 0]
 
 

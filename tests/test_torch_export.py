@@ -1,12 +1,12 @@
 """The port's AOT export (``hub.export_convert`` / ``export_fn`` /
 ``load_exported`` and ``bin/export_model``) on the CPU: a tiny anonymizer's
 F0 + convert at B=2 x 1 s exported by the CLI to a ``.pt2`` program that
-names the ``satpu_torch::shc_band`` op, loaded and run in a fresh process
-that imports only that op's registration: within 1e-6 of eager, and
-satpu's convert on the same input and F0 at the convert parity tolerance
-(rel 1e-4); an extractor's loglikes exported and loaded likewise; the op's
-fake (export-time) result has the plain version's shape and dtype
-(``torch.library.opcheck``)."""
+names the ``satpu_torch::shc_band`` and ``satpu_torch::viterbi_path`` ops,
+loaded and run in a fresh process that imports only those ops'
+registration: within 1e-6 of eager, and satpu's convert on the same input
+and F0 at the convert parity tolerance (rel 1e-4); an extractor's loglikes
+exported and loaded likewise; each op's fake (export-time) result has the
+plain version's shape and dtype (``torch.library.opcheck``)."""
 import os
 import subprocess
 import sys
@@ -78,7 +78,9 @@ def test_convert_exports_and_runs_without_the_model(tmp_path):
                             {"asrbn": dict(ASRBN_TINY), **ANON_TINY}, net.state_dict())
     assert export_model.main(["--checkpoint", ckpt, "--out", pt2, "--device", "cpu",
                               "--batch", "2", "--num-samples", str(wav.shape[1])]) == 0
-    assert "satpu_torch.shc_band.default" in _ops(pt2)
+    ops = _ops(pt2)
+    assert "satpu_torch.shc_band.default" in ops
+    assert "satpu_torch.viterbi_path.default" in ops
     w, t = torch.from_numpy(wav), torch.from_numpy(tid)
     out = _run_fresh(pt2, (w, t), tmp_path)
     with torch.no_grad():
@@ -123,3 +125,18 @@ def test_shc_band_op_fake_matches_plain():
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
         fake = torch.ops.satpu_torch.shc_band(mode.from_tensor(mag), 31, 226, 4, 21)
     assert fake.shape == out.shape and fake.dtype == out.dtype == torch.float32
+
+
+def test_viterbi_path_op_fake_matches_plain():
+    from satpu_torch.ops.yaapt import viterbi_path_plain
+
+    rng = np.random.default_rng(0)
+    local = torch.from_numpy(rng.integers(0, 3, (3, 6, 40)).astype(np.float32))
+    trans = torch.from_numpy(rng.integers(0, 3, (3, 6, 6, 40)).astype(np.float32))
+    for args in ((local, trans), (local, trans.transpose(1, 2))):
+        torch.library.opcheck(torch.ops.satpu_torch.viterbi_path.default, args)
+        out = torch.ops.satpu_torch.viterbi_path(*args)
+        assert torch.equal(out, viterbi_path_plain(*args))
+        with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+            fake = torch.ops.satpu_torch.viterbi_path(*(mode.from_tensor(a) for a in args))
+        assert fake.shape == out.shape == (3, 40) and fake.dtype == out.dtype == torch.int64
