@@ -20,11 +20,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
    card's F0 against the known contours;
 4. cpu: the card against the port's own CPU path at f32 (TF32 off) on one
    2 s utterance, for get_f0 and convert;
-5. throughput: get_f0 and convert as two calls at B=32 and B=128 x 10 s,
-   bf16, in audio-seconds per second;
-6. profile: the kernels that take the device time of one B=32 batch, and
-   the device's busy share of each call;
-7. den kernel: holds the LF-MMI den forward (K2f) and backward (K2b)
+5. den kernel: holds the LF-MMI den forward (K2f) and backward (K2b)
    kernels against their plain versions at the training path's shapes (the
    full-scale den graph of 1641 states, B=16, T=99) on random loglikes and
    on the full-width network's chain output, and on a 4001-state graph
@@ -35,17 +31,17 @@ Phases (each prints its lines; any failure exits non-zero with no result):
    (B=16, T = 247 and 661, its random-walk numerators): the same checks,
    each timed beside its plain version, and a training step's numerator
    (one call) against the three plain passes it replaced;
-8. train: builds a chain fixture (den graph, numerator FSTs, 32 + 16
+6. train: builds a chain fixture (den graph, numerator FSTs, 32 + 16
    synthetic 3 s egs) and runs the ``train_asr`` CLI on the card for 4 steps
    of the full-width TDNN-F + VQ-48 with natural gradient; checks the
    logged objf, that every step launched both den kernels and both
    numerator kernels, and that
    final.ckpt serves as an ``asrbn_tdnnf`` extractor;
-9. train-cpu: one tiny train step on the card against the port's CPU path;
-10. train-throughput: full-width train steps at B=16 and B=64 x 3 s, then a
-    profile of as many steps: the step's phases (the trainer's profiler
-    ranges), the busy share, and the device items of a B=16 step;
-11. eval: the ``eval_anon`` CLI on the card over the slice phase's
+7. train-cpu: one tiny train step on the card against the port's CPU path;
+8. train-throughput: full-width train steps at B=64 x 3 s, then a profile
+    of as many steps: the step's phases (the trainer's profiler ranges) and
+    the busy share (B=16 is the benchmark's ``chain_libri100_b16``);
+9. eval: the ``eval_anon`` CLI on the card over the slice phase's
     anonymized dir (original-enrol / anonymized-trial: 8 target and 16
     non-target trials), with a full-width ``tdnnf`` ASR model (1024 wide,
     3280 pdfs, f32) decoding a word-bigram graph built over the den graph's
@@ -54,11 +50,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     results, that the native decoder decoded every utterance, and the card
     against the port's CPU path at f32 (the same hyps, loglikes rel <= 1e-3,
     x-vector cosine >= 0.9999, the same trial ranking);
-12. eval-throughput: x-vector extraction (chunked, B=64 windows of 3 s) and
+10. eval-throughput: x-vector extraction (chunked, B=64 windows of 3 s) and
     loglikes (B=32 x 10 s) in audio-seconds per second with their busy
     shares, and the host decoder's milliseconds per audio-second at beam
     16 / lattice beam 8, one thread and a thread pool;
-13. gan: the ``train_vc`` CLI on the card at full width
+11. gan: the ``train_vc`` CLI on the card at full width
     (egs/vc/libritts/configs/hifigan.ini: generator 512 over the flagship's
     247 speakers, full MPD and MSD, B=32, segment 16320, f32; cuDNN's
     deterministic conv algorithms, the CLI's default) for one epoch
@@ -67,31 +63,31 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     kernel; checks every step's metrics, that the warm-up launched the
     kernel, the checkpoint triplet, g_best and the validation error, and
     that the ``anonymize`` CLI serves the written generator;
-14. gan-cpu: one tiny GAN step on the card against the port's CPU path;
-15. gan-throughput: the ops of a GAN step that torch calls
+12. gan-cpu: one tiny GAN step on the card against the port's CPU path;
+13. gan-throughput: the ops of a GAN step that torch calls
     nondeterministic; full-width GAN steps from a fixed batch, B=32 f32 and
     B=128 bf16 at segment 16320: ms per step with cuDNN's default and its
     deterministic conv algorithms, audio-seconds per second, peak memory,
     then a profile of as many steps: the step's phases (the trainer's
     profiler ranges), the busy share and the top device items;
-16. asv: the ``train_asv`` CLI on the card with
+14. asv: the ``train_asv`` CLI on the card with
     egs/asv/voxceleb/configs/ecapa.ini's widths and batch (ECAPA 512, B=1024
     = 16 speakers x 64, 3 s, f32, SpecAugment, batch statistics) for 2
     epochs over 16 synthetic speakers x 4 voiced utterances of 3.5-6 s;
     checks every epoch's loss and validation EER, the checkpoints, best.ckpt
     and the metrics log, and that best.ckpt loads on the card and embeds the
     validation chunks;
-17. asv-cpu: one tiny ECAPA step and one tiny half-ResNet step on the card
+15. asv-cpu: one tiny ECAPA step and one tiny half-ResNet step on the card
     against the port's CPU path (loss, gradients, batch-norm statistics);
-18. asv-throughput: full-width ECAPA steps from a fixed batch of 3 s with the
+16. asv-throughput: full-width ECAPA steps from a fixed batch of 3 s with the
     head over 5994 speakers, B=1024 f32, B=1024 bf16 and B=128 f32: ms per
     step, audio-seconds per second, peak memory, then a profile of as many
     steps: the ``asv.<phase>`` split, the busy share and the top device
     items;
-19. fbank: the port's fbank (+ CMVN) on the card against the CPU on the
+17. fbank: the port's fbank (+ CMVN) on the card against the CPU on the
     slice phase's anonymized wavs and its voiced inputs, both against the
     same fbank in f64 on the host;
-20. w2v2-train: the ``prepare_data`` CLI (prepare_data.ini: grapheme
+18. w2v2-train: the ``prepare_data`` CLI (prepare_data.ini: grapheme
     lexicon, speed perturbation) over 32 voiced utterances of 3 s, then the
     ``train_asr`` CLI with egs/asr/librispeech/configs/
     tdnnf_wav2vec2_vq_48.ini at full width, cut in depth by
@@ -103,42 +99,41 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     finite ``extract_bn`` features and VQ indices in range; then 2 steps
     each of the same net under the bf16 training policy and of
     tdnnf_spkadv.ini;
-21. w2v2-cpu: one tiny wav2vec2-VQ step and one tiny speaker-adversarial
+19. w2v2-cpu: one tiny wav2vec2-VQ step and one tiny speaker-adversarial
     step on the card against the port's CPU path (loss, gradients in
     relative L2, batch-norm statistics);
-22. w2v2-throughput: full-width B5 train steps (CUT_LAYERS layers) from a
-    fixed batch of B=16 x 3 s at 3280 pdfs on the 1641-state den graph, f32 and bf16: ms per
-    step, audio-seconds per second, peak memory, the ``chain.<phase>``
-    split, busy share and top device items; K2f/K2b held against their
-    plain versions on this net's chain output (bitwise on repeat, one
-    launch a call) and timed against their bound;
-23. wavlm-eval: the ``asv_xvector`` WavLM-large + ECAPA-512 judge (its
+20. w2v2-den: K2f/K2b held against their plain versions (bitwise on
+    repeat) on the chain output of the full-width B5 extractor (CUT_LAYERS
+    layers) after two f32 train steps from a fixed batch of B=16 x 3 s at
+    3280 pdfs on the 1641-state den graph (its speed is the benchmark's
+    ``chain_w2v2_libri100_b16``, at 24 layers);
+21. wavlm-eval: the ``asv_xvector`` WavLM-large + ECAPA-512 judge (its
     transformer cut to CUT_LAYERS of 24 layers of 1024, relative position
     buckets, ECAPA on its 1024-wide
     weighted layer sum; random weights from seed 0, batch norms
     calibrated) saved, and the ``eval_anon`` CLI on the card over the slice
     phase's dirs (24 trials), then on the CPU: every x-vector (cosine >=
     0.9999), the trial ranking and the EER held card against CPU;
-24. wavlm-throughput: that judge's chunked x-vectors at B=64 x 3 s, f32:
+22. wavlm-throughput: that judge's chunked x-vectors at B=64 x 3 s, f32:
     audio-seconds per second, busy share, launches, peak memory, top items;
-25. wavlm-train: ASV train steps of the judge with the head over 5994
+23. wavlm-train: ASV train steps of the judge with the head over 5994
     speakers, B=64 x 3 s (halved until it fits), f32 and bf16 (satpu's
     policy, the WavLM front included): ms per step, the ``asv.<phase>``
     split, busy share, peak memory, top items; then a small-width step
     held card against the CPU (10x the CPU f32's own departure from f64);
-26. distribution: a reference-format ``final.pt`` of the flagship's
+24. distribution: a reference-format ``final.pt`` of the flagship's
     weights through the ``import_model`` CLI into a fresh zoo, then
     ``hub.load(tag + "+f0-transformation=quant_16")`` on the card (convert
     held against the original checkpoint's), then ``anonymize --num-procs
     2`` with the zoo checkpoint against one process (the same wavs, each of
     its input's length, within bf16 serving's 2e-2), and a run whose shards
     cannot start exits non-zero;
-27. dp-train: data parallelism on the one card. The ``train_asr``,
+25. dp-train: data parallelism on the one card. The ``train_asr``,
     ``train_asv`` and ``train_vc`` CLIs under ``torch.distributed.run
-    --nproc-per-node 1`` (NCCL) with the arguments of phases 8, 16 and 13,
+    --nproc-per-node 1`` (NCCL) with the arguments of phases 6, 14 and 11,
     their logged losses against those runs' (rel 1e-3), and ``train_vc``
     again without a group: its logged values and g_best.ckpt bitwise phase
-    13's; each trainer's step (TDNN-F B=16, ECAPA-512 B=128 over 5994
+    11's; each trainer's step (TDNN-F B=16, ECAPA-512 B=128 over 5994
     speakers, the GAN at B=32) from seed 0 without and with a one-rank
     NCCL group: ms per step, the sync ranges' split, the first losses;
     then two gloo ranks on cuda:0 (CUDA tensors),
@@ -147,16 +142,16 @@ Phases (each prints its lines; any failure exits non-zero with no result):
     B=8): losses rel 1e-5, every tensor of the states rel 1e-4 in relative
     L2, rank 1 equal to rank 0, K2f/K2b launched in every chain step (a correctness
     check: gloo stages through the host);
-28. serve-mesh: ``anonymize --serve-mesh true`` on the card bitwise the run
+26. serve-mesh: ``anonymize --serve-mesh true`` on the card bitwise the run
     without the flag (one device runs unsharded), and ``process_data`` over
     [cuda:0, cuda:0] (each batch in two blocks) within 1e-6 of the
     unsharded run, K1 launched once per block;
-29. export: ``hub.export_convert`` of the flagship (bf16 serving) at B=2 x
+27. export: ``hub.export_convert`` of the flagship (bf16 serving) at B=2 x
     2 s, loaded with ``torch.export.load`` in a fresh process that imports
     only the SHC op's registration and run there: export and load times,
     K1's launches inside the program, its departure from eager, and
     audio-seconds per second exported and eager;
-30. surface: fault 4 (ECAPA's batch norm in training at |mean|/std = 1e4
+28. surface: fault 4 (ECAPA's batch norm in training at |mean|/std = 1e4
     without a group, in one-rank NCCL and gloo groups and two gloo ranks on
     cuda:0, against f64) and the ECAPA-512 B=128 step's cost of the
     two-pass moments; the eval phase's judge under the reference sidekit's
@@ -174,7 +169,7 @@ Usage (from the repository root):  python3 chip_smoke.py
 and its kernel phase alone, then prints the kernels line with the launches
 that phase made: ``shc`` (K1; to time another tree's SHC kernel with the
 same phase, run this file from that tree's root), ``viterbi`` (K4, its part
-of phase 2) or ``num_fb`` (K3f/K3b, their part of phase 7).
+of phase 2) or ``num_fb`` (K3f/K3b, their part of phase 5).
 
 ``python3 chip_smoke.py --cards N`` is the multi-card run (satpu's
 ``dryrun_multichip``; N = 4 on a four-H100 host; it refuses with exit 1
@@ -433,6 +428,7 @@ def phase_kernel(np, torch):
 
     from satpu_torch.models.anonymizer import YAAPT_OPTS
     from satpu_torch.ops import yaapt as Y
+    from satpu_torch.utils import cuda_build
 
     p = Y._merged_params(YAAPT_OPTS)
     to_pad, frame_size, frame_jump, nfft = Y.frame_geometry(p)
@@ -454,7 +450,7 @@ def phase_kernel(np, torch):
 
     # the design's model (an older tree's kernel, timed with this file from
     # that tree's root, has no layout to model)
-    lib = Y._shc_lib()
+    lib = cuda_build.load("shc")
     wf = shc_wavefronts(lib, M, I, H, J) if hasattr(lib, "satpu_shc_layout") else None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
@@ -718,82 +714,6 @@ def phase_cpu(np, torch, ckpt):
     check(wrel <= 1e-2, "card waveform departs from the CPU path")
 
 
-def phase_throughput(torch, ckpt, card):
-    from satpu_torch import infer_helper
-
-    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    T = 10 * SR
-    for B, iters in ((32, 3), (128, 2)):
-        wav = torch.randn((B, T), generator=gen, device="cuda") * 0.05
-        tid = torch.arange(B, device="cuda") % 247
-        torch.cuda.reset_peak_memory_stats()
-        with torch.inference_mode():
-            out = model.convert(wav, model.get_f0(wav), tid)  # warm-up
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * iters)]
-            t0 = time.perf_counter()
-            for i in range(iters):
-                ev[3 * i].record()
-                f0 = model.get_f0(wav)
-                ev[3 * i + 1].record()
-                out = model.convert(wav, f0, tid)
-                ev[3 * i + 2].record()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        f0_ms = sum(ev[3 * i].elapsed_time(ev[3 * i + 1]) for i in range(iters)) / iters
-        cv_ms = sum(ev[3 * i + 1].elapsed_time(ev[3 * i + 2]) for i in range(iters)) / iters
-        check(tuple(out.shape) == (B, T + 1) and bool(torch.isfinite(out).all()),
-              f"throughput output at B={B}")
-        rate = B * 10.0 * iters / wall
-        print(f"[throughput] B={B} x 10 s bf16: {rate:.1f} audio-s/s ({wall / iters * 1e3:.1f} ms"
-              f" per batch, host clock); device get_f0 {f0_ms:.1f} ms + convert {cv_ms:.1f} ms;"
-              f" peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-        del wav, out, f0
-
-
-def phase_profile(torch, ckpt, card):
-    """Where one B=32 x 10 s batch spends its time: torch.profiler over each
-    serving call, kernels ranked by device time, and the device's busy share
-    of the call's host-clock span. Informational: nothing here can fail."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from satpu_torch import infer_helper
-
-    model, _ = infer_helper.load_model(ckpt, option_args=infer_helper.serving_option_args())
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    wav = torch.randn((32, 10 * SR), generator=gen, device="cuda") * 0.05
-    tid = torch.arange(32, device="cuda")
-    with torch.inference_mode():
-        f0 = model.get_f0(wav)
-        model.convert(wav, f0, tid)  # warm-up
-        for name, fn in (("get_f0", lambda: model.get_f0(wav)),
-                         ("convert", lambda: model.convert(wav, f0, tid))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            span_us = (time.perf_counter() - t0) * 1e6  # without the profiler
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            # device-side rows only: the aten ops that launched them carry the
-            # same time again
-            rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            busy = sum(r[0] for r in rows)
-            if not rows:
-                print(f"[profile] {name}: the profiler recorded no device time")
-                continue
-            print(f"[profile] B=32 x 10 s bf16 {name}: {span_us / 1e3:.1f} ms (host clock, "
-                  f"unprofiled), kernels {busy / 1e3:.1f} ms = {busy / span_us:.0%} busy, "
-                  f"{sum(r[1] for r in rows)} kernel launches [{card}]")
-            for dev_us, count, key in sorted(rows, reverse=True)[:8]:
-                print(f"[profile]   {dev_us / 1e3:8.2f} ms {dev_us / busy:5.1%} x{count:<5d}"
-                      f" {key[:90]}")
-
-
 def den_graph():
     from satpu_torch.chain.objf import DenominatorGraph
     from satpu_torch.chain.prep import random_bigram_den
@@ -806,6 +726,13 @@ def den_graph():
     check((tree.num_pdfs, den.num_states) == (NUM_PDFS, DEN_STATES)
           and den.factored is not None, "the full-scale den graph")
     return den
+
+
+def den_placement(den_fb, g):
+    """Where K2f and K2b keep the arcs of the den graph tensors ``g``:
+    (forward, backward), each "shared" or "global"."""
+    S, nnz = g["A"].shape[0], g["A_sparse"].in_src.numel()
+    return tuple(den_fb.placement(S, nnz, backward) for backward in (False, True))
 
 
 def den_check(torch, den_fb, g, ll, lk, name: str):
@@ -843,9 +770,9 @@ def den_check(torch, den_fb, g, ll, lk, name: str):
     live = alphas_p > den_fb.NEG_INF / 2
     a_abs = (alphas - alphas_p)[live].abs().max().item()
     same_live = bool(torch.equal(live, alphas > den_fb.NEG_INF / 2))
+    place = den_placement(den_fb, g)
     print(f"[kernel] den_fb K2f+K2b vs plain, {name} loglikes B={B} T={T} S={S} leak 1e-5"
-          f" (arcs in {den_fb.den_fb_forward.placement} memory forward,"
-          f" {den_fb.den_fb_backward.placement} backward):"
+          f" (arcs in {place[0]} memory forward, {place[1]} backward):"
           f" value max abs err {v_abs:.3e}, rel {v_rel:.3e} (tolerance rel 1e-5);"
           f" alphas max abs err {a_abs:.3e}, rel {a_abs / alphas_p[live].abs().max():.3e}"
           f" over the {live.float().mean().item():.1%} live entries (same live set:"
@@ -912,7 +839,7 @@ def phase_den_kernel(np, torch, den):
     for name, ll in inputs.items():
         e_f, e_b, llf, lls, alphas = den_check(torch, den_fb, g, ll, lk, name)
         err_f, err_b = max(err_f, e_f), max(err_b, e_b)
-    place = (den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)
+    place = den_placement(den_fb, g)
 
     phones, succ, b_big, t_big = BIG_DEN
     fst, tree, _ = random_bigram_den(phones, succ, seed=0)
@@ -920,8 +847,8 @@ def phase_den_kernel(np, torch, den):
     ll = torch.randn((b_big, t_big, tree.num_pdfs), generator=gen, device="cuda") * 2
     e_f, e_b, *big_ll = den_check(torch, den_fb, big, ll, lk, f"random ({phones}-phone graph)")
     err_f, err_b = max(err_f, e_f), max(err_b, e_b)
-    check((den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)
-          == ("global", "global"), "the 4001-state graph's arcs fit shared memory")
+    check(den_placement(den_fb, big) == ("global", "global"),
+          "the 4001-state graph's arcs fit shared memory")
 
     # launches per call, then timed: on the chain output (the last input of
     # the full-scale graph) at B=16, on random loglikes at B=64, and on the
@@ -1122,8 +1049,7 @@ def den_timing(torch, den_fb, g, llf, lls, lk):
                                            + 2 * BTS) + a_bytes)
     out = ((ms_f, plain_f, b_f, by_f), (ms_b, plain_b, b_b, by_b))
     for name, (ms, plain, b, by), place in zip(
-            ("K2f den_fb_forward", "K2b den_fb_backward"), out,
-            (den_fb.den_fb_forward.placement, den_fb.den_fb_backward.placement)):
+            ("K2f den_fb_forward", "K2b den_fb_backward"), out, den_placement(den_fb, g)):
         print(f"[kernel] {name} B={B} T={T} S={S}, arcs in {place} memory: {ms * 1e3:.1f} us"
               f" = {ms * 1e3 / T:.2f} us a frame (bound {b * 1e3:.1f} us by {by},"
               f" {b / ms:.2%} of it); plain version {plain * 1e3:.1f} us")
@@ -1304,12 +1230,12 @@ def train_split(prof, iters: int, prefix: str = "chain.", phases=None):
 
 
 def phase_train_throughput(np, torch, fx, card):
-    """Full-width train steps (TDNN-F 1024 + VQ-48, NG on, f32) at B=16 and
-    B=64 x 3 s: ms per step and audio-seconds per second (host clock,
-    unprofiled), peak memory, then a profile of as many steps for the step's
-    phase split (host ms, device ms), busy share and launch count, the top
-    device items at B=16, and the den kernels timed alone at the same
-    shapes. The profile is informational: nothing read from it can fail."""
+    """Full-width train steps (TDNN-F 1024 + VQ-48, NG on, f32) at B=64 x
+    3 s, a batch no benchmark cell drives: ms per step and audio-seconds per
+    second (host clock, unprofiled), peak memory, then a profile of as many
+    steps for the step's phase split (host ms, device ms), busy share and
+    launch count, and the den kernels timed alone at the same shapes. The
+    profile is informational: nothing read from it can fail."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1322,55 +1248,50 @@ def phase_train_throughput(np, torch, fx, card):
     den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
     g = den.tensors("cuda")
     lk = den_fb.leak_log(1e-5)
-    for B, iters in ((16, 4), (64, 4)):  # multiples of 4: NG update steps in proportion
-        model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
-        trainer = ChainTrainer(model, den, lr_schedule=lambda step: 1e-3)
-        batch = chain_batch(torch, fx, B, "cuda")
-        for _ in range(2):  # warm-up (the first is an NG subspace-update step)
+    B, iters = 64, 4  # a multiple of 4: NG update steps in proportion
+    model = infer_helper.build_model("asrbn_tdnnf", device="cuda", seed=0, **TRAIN_NET)
+    trainer = ChainTrainer(model, den, lr_schedule=lambda step: 1e-3)
+    batch = chain_batch(torch, fx, B, "cuda")
+    for _ in range(2):  # warm-up (the first is an NG subspace-update step)
+        trainer.step(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = trainer.step(*batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    check(bool(torch.isfinite(metrics["loss"])), f"loss not finite at B={B}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
             trainer.step(*batch)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            metrics = trainer.step(*batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / iters
-        check(bool(torch.isfinite(metrics["loss"])), f"loss not finite at B={B}")
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                trainer.step(*batch)
-            torch.cuda.synchronize()
-        host, dev = train_split(prof, iters)
-        rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation and e.self_device_time_total > 0]
-        busy = sum(r[0] for r in rows) / 1e3
-        # the den kernels alone at this step's shapes (inside objective_*)
-        with torch.no_grad():
-            co = model(batch[0], generator=trainer.generator)[0]
-        llf, lls = (co.index_select(-1, g[k]).contiguous() for k in ("pdf_fwd", "pdf_self"))
-        a0 = g["start"].expand(B, den.num_states).contiguous()
-        graph = (g["A"], g["log_self"], g["log_init"], lk, g["A_sparse"])
-        alphas = den_fb.den_fb_forward(llf, lls, a0, *graph)
-        g_final = torch.ones_like(a0)
-        k2f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph), iters=5)
-        k2b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph),
-                      iters=5)
-        audio = B * EG_SECONDS
-        print(f"[train-throughput] B={B} x {EG_SECONDS} s, tdnnf_vq 1024, NG on, f32:"
-              f" {wall * 1e3:.1f} ms/step (host clock), {audio / wall:.1f} audio-s/s; peak mem"
-              f" {peak:.2f} GiB [{card}]")
-        print(f"[train-throughput]   profiled split ms/step, host / device: "
-              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
-              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
-              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
-              f" {sum(r[1] for r in rows)} launches; K2f alone {k2f:.2f}, K2b alone {k2b:.2f}")
-        if B == 16:
-            for dev_us, count, key in sorted(rows, reverse=True)[:12]:
-                print(f"[train-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
-                      f" x{count:<5d} {key[:90]}")
-        del trainer, model, batch, prof
+    host, dev = train_split(prof, iters)
+    rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows) / 1e3
+    # the den kernels alone at this step's shapes (inside objective_*)
+    with torch.no_grad():
+        co = model(batch[0], generator=trainer.generator)[0]
+    llf, lls = (co.index_select(-1, g[k]).contiguous() for k in ("pdf_fwd", "pdf_self"))
+    a0 = g["start"].expand(B, den.num_states).contiguous()
+    graph = (g["A"], g["log_self"], g["log_init"], lk, g["A_sparse"])
+    alphas = den_fb.den_fb_forward(llf, lls, a0, *graph)
+    g_final = torch.ones_like(a0)
+    k2f = cuda_ms(torch, lambda: den_fb.den_fb_forward(llf, lls, a0, *graph), iters=5)
+    k2b = cuda_ms(torch, lambda: den_fb.den_fb_backward(g_final, alphas, llf, lls, *graph),
+                  iters=5)
+    audio = B * EG_SECONDS
+    print(f"[train-throughput] B={B} x {EG_SECONDS} s, tdnnf_vq 1024, NG on, f32:"
+          f" {wall * 1e3:.1f} ms/step (host clock), {audio / wall:.1f} audio-s/s; peak mem"
+          f" {peak:.2f} GiB [{card}]")
+    print(f"[train-throughput]   profiled split ms/step, host / device: "
+          + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
+          + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
+          f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
+          f" {sum(r[1] for r in rows)} launches; K2f alone {k2f:.2f}, K2b alone {k2b:.2f}")
 
 
 def eval_graph(np):
@@ -2529,20 +2450,13 @@ def phase_w2v2_cpu(np, torch):
             check(c_ <= max(10 * o_, 1e-4), f"card {kind} {what} depart from the CPU path")
 
 
-def phase_w2v2_throughput(np, torch, fx, card):
-    """Full-width train steps of the B5 extractor (wav2vec2 large + TDNN-F
-    1024 + VQ-48, NG on, the front's 1/20 update factor) from a fixed batch
-    of B=16 x 3 s (the ini's batch) at 3280 pdfs on the 1641-state den
-    graph, in f32 and bf16: ms per step, audio-seconds per second (host
-    clock, unprofiled), peak memory, then a profile of as many steps for the
-    ``chain.<phase>`` split, the busy share, the top device items and one
-    den kernel a den call (the trace's den_fwd / den_bwd items over the
-    wrappers' calls). K2f and K2b are held against their plain versions on
-    this net's chain output at this path's T, bitwise on repeat, and timed
-    against their bound. Returns the den kernels' largest errors."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_w2v2_den(np, torch, fx):
+    """K2f and K2b held against their plain versions (bitwise on repeat) on
+    the chain output, at this path's T, of the full-width B5 extractor
+    (wav2vec2 large at CUT_LAYERS layers + TDNN-F 1024 + VQ-48, NG on, f32,
+    the front's 1/20 update factor) after two train steps from a fixed
+    batch of B=16 x 3 s (the ini's batch) at 3280 pdfs on the 1641-state den
+    graph. Returns the den kernels' largest errors."""
     from satpu_torch import infer_helper
     from satpu_torch.chain import den_fb
     from satpu_torch.chain.fst import Fst
@@ -2551,77 +2465,26 @@ def phase_w2v2_throughput(np, torch, fx, card):
     from satpu_torch.models.asrbn import wav2vec2_tdnnf_config
 
     den = DenominatorGraph.from_fst(Fst.read(fx["den_fst"]), NUM_PDFS)
-    g = den.tensors("cuda")
-    lk = den_fb.leak_log(1e-5)
     B = 16
     wav = torch.from_numpy(np.stack([voiced_utterance(np, EG_SECONDS, 95.0 + 9 * k,
                                                       seed=900 + k)[0] for k in range(B)])).cuda()
     _, graphs, frames = chain_batch(torch, fx, B, "cuda")
-    errs = (0.0, 0.0)
-    for dtype, iters in (("float32", 4), ("bfloat16", 4)):
-        params = dict(dataclasses.asdict(wav2vec2_tdnnf_config(NUM_PDFS, "vq", 48)),
-                      natural_gradient=True, compute_dtype=dtype,
-                      wav2vec2=dataclasses.asdict(w2v2_cut()))
-        model = infer_helper.build_model("asrbn_tdnnf_wav2vec2", device="cuda", seed=0, **params)
-        trainer = ChainTrainer(model, den, ChainTrainOpts(lr=3e-4, compute_dtype=dtype),
-                               lr_schedule=lambda step: 3e-4,
-                               preprocessor_schedule=lambda step: 1.0 / 20.0)
-        for _ in range(2):  # warm-up (the first is an NG subspace-update step)
-            trainer.step(wav, graphs, frames)
-        if dtype == "float32":
-            # K2f/K2b on this net's chain output at this path's T
-            with torch.no_grad():
-                co = model.train()(wav, generator=trainer.generator)[0].float()
-            e_f, e_b, llf, lls, _ = den_check(torch, den_fb, g, co, lk,
-                                              f"wav2vec2 chain_out (T={co.shape[1]})")
-            errs = (e_f, e_b)
-            den_timing(torch, den_fb, g, llf, lls, lk)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            metrics = trainer.step(wav, graphs, frames)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / iters
-        check(bool(torch.isfinite(metrics["loss"])), f"w2v2 loss not finite, {dtype}")
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        n0 = [kernel_launches(k) for k in ("k2f", "k2b")]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                trainer.step(wav, graphs, frames)
-            torch.cuda.synchronize()
-        host, dev = train_split(prof, iters)
-        rows = [(e.self_device_time_total / iters, e.count // iters, e.key)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation and e.self_device_time_total > 0]
-        busy = sum(r[0] for r in rows) / 1e3
-        # one device kernel a den call: den_fwd / den_bwd items in the trace of
-        # these steps over the wrappers' calls in them (a short trace of a
-        # few calls has come back empty on the card late in this script)
-        kernels = [sum(r[1] for r in rows if name in r[2]) for name in ("den_fwd", "den_bwd")]
-        calls = [(kernel_launches("k2f") - n0[0]) // iters,
-                 (kernel_launches("k2b") - n0[1]) // iters]
-        print(f"[w2v2-throughput] den kernels a step in the trace: K2f {kernels[0]}, K2b"
-              f" {kernels[1]}, for {calls[0]} and {calls[1]} wrapper calls a step")
-        check(calls[0] > 0 and kernels == calls,
-              f"a den kernel call is not one launch: {kernels} kernels, {calls} calls a step")
-        n_params = sum(p.numel() for p in model.parameters())
-        print(f"[w2v2-throughput] B={B} x {EG_SECONDS} s, tdnnf_wav2vec2_vq (wav2vec2 large at"
-              f" {CUT_LAYERS} layers +"
-              f" TDNN-F 1024 + VQ-48, {n_params / 1e6:.1f} M weights, {NUM_PDFS} pdfs), NG on,"
-              f" {dtype}: {wall * 1e3:.1f} ms/step (host clock), {B * EG_SECONDS / wall:.1f}"
-              f" audio-s/s; peak mem {peak:.2f} GiB [{card}]")
-        print(f"[w2v2-throughput]   profiled split ms/step, host / device: "
-              + ", ".join(f"{k} {host[k]:.2f} / {dev[k]:.2f}" for k in host)
-              + f", other - / {dev['other']:.2f}; device {busy:.2f} ms ="
-              f" {busy / (wall * 1e3):.0%} busy of the unprofiled step,"
-              f" {sum(r[1] for r in rows)} launches")
-        for dev_us, count, key in sorted(rows, reverse=True)[:10]:
-            print(f"[w2v2-profile]   {dev_us / 1e3:8.2f} ms {dev_us / 1e3 / busy:5.1%}"
-                  f" x{count:<5d} {key[:90]}")
-        del trainer, model, prof
-        torch.cuda.empty_cache()
-    return errs
+    params = dict(dataclasses.asdict(wav2vec2_tdnnf_config(NUM_PDFS, "vq", 48)),
+                  natural_gradient=True, compute_dtype="float32",
+                  wav2vec2=dataclasses.asdict(w2v2_cut()))
+    model = infer_helper.build_model("asrbn_tdnnf_wav2vec2", device="cuda", seed=0, **params)
+    trainer = ChainTrainer(model, den, ChainTrainOpts(lr=3e-4, compute_dtype="float32"),
+                           lr_schedule=lambda step: 3e-4,
+                           preprocessor_schedule=lambda step: 1.0 / 20.0)
+    for _ in range(2):  # the first is an NG subspace-update step
+        trainer.step(wav, graphs, frames)
+    with torch.no_grad():
+        co = model.train()(wav, generator=trainer.generator)[0].float()
+    e_f, e_b, *_ = den_check(torch, den_fb, den.tensors("cuda"), co, den_fb.leak_log(1e-5),
+                             f"wav2vec2 chain_out (T={co.shape[1]})")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return e_f, e_b
 
 
 # ---------------------------------------------------------------------------
@@ -4129,7 +3992,7 @@ def phase_cards_kernels(np, torch, n: int):
             with kernel_cards(torch) as cards:
                 Y.shc_band(mag, *args)
             print(f"[cards] K1 {geometry} mag [{mag.shape[0]} x {M}] on cuda:{k}, cuda:{other}"
-                  f" current ({Y.shc_band.instantiation} instantiation): rel {rel:.3e}"
+                  f" current ({Y.shc_instantiation(*args[2:])} instantiation): rel {rel:.3e}"
                   f" (tolerance 1e-5), two calls bitwise {same}, {calls} wrapper counts for 2"
                   f" calls, a call's kernels in the trace on cards {cards}")
             check(out.device == dev and rel <= 1e-5 and same and calls == 2 and cards == [k],
@@ -4760,8 +4623,6 @@ def main() -> int:
     entries = [phase_kernel(np, torch), phase_viterbi_kernel(np, torch)]
     launches, ckpt = phase_slice(np, torch)
     phase_cpu(np, torch, ckpt)
-    phase_throughput(torch, ckpt, card)
-    phase_profile(torch, ckpt, card)
     lap("serving")
     # chain training: train_asr (kernels K2f, K2b)
     entries += phase_den_kernel(np, torch, den_graph())
@@ -4797,7 +4658,7 @@ def main() -> int:
     # ASR-BN variants: prepare_data -> train_asr of the B5 extractor (K2f, K2b)
     w2v2_launches = phase_w2v2_train(np, torch, card)
     phase_w2v2_cpu(np, torch)
-    w2v2_errs = phase_w2v2_throughput(np, torch, fx, card)
+    w2v2_errs = phase_w2v2_den(np, torch, fx)
     for entry, err in zip((e for e in entries if e["name"].startswith("den_fb")), w2v2_errs):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     print("[kernels] den kernel launches by path: " + ", ".join(

@@ -20,18 +20,16 @@ batch row running all T frames) and count the calls in the counters
 The kernels read A's nonzeros, ``den_sparse(A)``, which the caller passes
 (``DenominatorGraph.tensors`` caches it as ``"A_sparse"``); they keep the
 arcs in a block's shared memory when they fit and read them from device
-memory otherwise, and record the placement taken in ``.placement``. On CPU
-tensors the wrappers run the plain versions, the same formulas in PyTorch
-ops over the dense A. ``den_scan`` wraps both in a
-``torch.autograd.Function`` (gradients flow to llf and lls only: the graph
-tensors are constants) whose backward runs in the span ``chain.den_backward``;
-``den_scan_plain`` is the same function through the
-plain versions on any device. The final value
+memory otherwise (``placement``). On CPU tensors the wrappers run the
+plain versions, the same formulas in PyTorch ops over the dense A.
+``den_scan`` wraps both in a ``torch.autograd.Function`` (gradients flow
+to llf and lls only: the graph tensors are constants) whose backward runs
+in the span ``chain.den_backward``; ``den_scan_plain`` is the same function
+through the plain versions on any device. The final value
 ``logsumexp(leak(alpha_T) + final)`` stays outside, in ``final_value``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -39,7 +37,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.trace import count, span
+from ..utils import cuda_build
+from ..utils.trace import span
 
 NEG_INF = -1e30
 TINY = 1e-30  # a normal f32: log(TINY) stays finite
@@ -173,16 +172,12 @@ def den_sparse(A) -> DenSparse:
 
 
 def _check(name, **tensors):
-    dev = None
+    """The tensors' common device (``cuda_build.device_of``), after checking
+    that each is float32."""
+    dev = cuda_build.device_of(name, *tensors.values())
     for k, x in tensors.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: {k} must be float32, got {x.dtype}")
-        if dev is None:
-            dev = x.device
-        elif x.device != dev:
-            raise ValueError(f"{name}: {k} is on {x.device}, not {dev}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     return dev
 
 
@@ -221,7 +216,7 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
     alpha0 [B, S], A [S, S] prob-domain cross transitions, log_self and
     log_init [S]; all float32. On CUDA this launches ``satpu_den_fwd`` once
     over A's nonzeros ``sparse`` (required there; one count in
-    ``k2f.launches``, the arcs' placement in ``.placement``), on
+    ``k2f.launches``; the arcs' placement is ``placement``), on
     the CPU it runs ``den_fb_forward_plain``."""
     dev = _check("den_fb_forward", llf=llf, lls=lls, alpha0=alpha0, A=A,
                  log_self=log_self, log_init=log_init)
@@ -231,24 +226,16 @@ def den_fb_forward(llf, lls, alpha0, A, log_self, log_init, log_leak: float,
     if dev.type == "cpu":
         return den_fb_forward_plain(llf, lls, alpha0, A, log_self, log_init, log_leak)
     arcs, nnz = _arcs("den_fb_forward", sparse, S, dev, backward=False)
-    lib, place = _lib(S, nnz, backward=False)
+    shared = placement(S, nnz, backward=False) == "shared"
     alphas = torch.empty((T + 1, B, S), device=dev, dtype=torch.float32)
     alphas[0] = alpha0
     llf, lls = llf.contiguous(), lls.contiguous()
     log_self, log_init = log_self.contiguous(), log_init.contiguous()
-    with torch.cuda.device(dev):  # the C entry point launches on the current device
-        err = lib.satpu_den_fwd(llf.data_ptr(), lls.data_ptr(),
-                                *(x.data_ptr() for x in arcs), log_self.data_ptr(),
-                                log_init.data_ptr(), log_leak, alphas.data_ptr(), B, T, S,
-                                nnz, place == "shared", torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_den_fwd launch failed: CUDA error {err}")
-    count("k2f.launches")
-    den_fb_forward.placement = place
+    cuda_build.launch(cuda_build.load("den_fb").satpu_den_fwd, llf.data_ptr(), lls.data_ptr(),
+                      *(x.data_ptr() for x in arcs), log_self.data_ptr(), log_init.data_ptr(),
+                      log_leak, alphas.data_ptr(), B, T, S, nnz, shared, device=dev,
+                      counter="k2f.launches")
     return alphas
-
-
-den_fb_forward.placement = None
 
 
 def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: float,
@@ -256,7 +243,7 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
     """K2b: (dllf, dlls) [B, T, S] from g_final = dL/d alpha_T [B, S] and the
     forward's alphas. On CUDA this launches ``satpu_den_bwd`` once over A's
     nonzeros ``sparse`` (required there; one count in
-    ``k2b.launches``, the arcs' placement in ``.placement``), on
+    ``k2b.launches``; the arcs' placement is ``placement``), on
     the CPU it runs ``den_fb_backward_plain``."""
     dev = _check("den_fb_backward", g_final=g_final, alphas=alphas, llf=llf, lls=lls,
                  A=A, log_self=log_self, log_init=log_init)
@@ -268,55 +255,30 @@ def den_fb_backward(g_final, alphas, llf, lls, A, log_self, log_init, log_leak: 
         return den_fb_backward_plain(g_final, alphas, llf, lls, A, log_self, log_init,
                                      log_leak)
     arcs, nnz = _arcs("den_fb_backward", sparse, S, dev, backward=True)
-    lib, place = _lib(S, nnz, backward=True)
+    shared = placement(S, nnz, backward=True) == "shared"
     dllf = torch.empty((B, T, S), device=dev, dtype=torch.float32)
     dlls = torch.empty_like(dllf)
     tensors = [x.contiguous() for x in (g_final, alphas, llf, lls)]
     rest = [x.contiguous() for x in (log_self, log_init)]
-    with torch.cuda.device(dev):
-        err = lib.satpu_den_bwd(*(x.data_ptr() for x in tensors),
-                                *(x.data_ptr() for x in arcs), *(x.data_ptr() for x in rest),
-                                log_leak, dllf.data_ptr(), dlls.data_ptr(), B, T, S, nnz,
-                                place == "shared", torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_den_bwd launch failed: CUDA error {err}")
-    count("k2b.launches")
-    den_fb_backward.placement = place
+    cuda_build.launch(cuda_build.load("den_fb").satpu_den_bwd, *(x.data_ptr() for x in tensors),
+                      *(x.data_ptr() for x in arcs), *(x.data_ptr() for x in rest), log_leak,
+                      dllf.data_ptr(), dlls.data_ptr(), B, T, S, nnz, shared, device=dev,
+                      counter="k2b.launches")
     return dllf, dlls
 
 
-den_fb_backward.placement = None
-
-_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-
-
-@functools.lru_cache(maxsize=None)
-def _load():
-    from ..utils import cuda_build
-
+def placement(S: int, nnz: int, backward: bool) -> str:
+    """Where K2f (K2b with ``backward``) keeps the arcs of a graph of S
+    states and nnz nonzeros in A: "shared" when they fit a block's shared
+    memory beside the row vectors, else "global" (read from device memory).
+    Raises ValueError for a graph the kernels do not take. Needs the
+    kernels' library, so the CUDA toolkit."""
     lib = cuda_build.load("den_fb")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.satpu_den_max_states.restype = i
-    lib.satpu_den_max_states.argtypes = []
-    lib.satpu_den_smem_bytes.restype = ctypes.c_longlong
-    lib.satpu_den_smem_bytes.argtypes = [i, i, i, i]
-    lib.satpu_den_fwd.restype = i
-    lib.satpu_den_fwd.argtypes = [p] * 7 + [f, p, i, i, i, i, i, p]
-    lib.satpu_den_bwd.restype = i
-    lib.satpu_den_bwd.argtypes = [p] * 12 + [f, p, p, i, i, i, i, i, p]
-    return lib
-
-
-def _lib(S: int, nnz: int, backward: bool):
-    """The library and the arcs' placement: "shared" when they fit a block's
-    shared memory beside the row vectors, else "global" (read from device
-    memory). Raises ValueError for a graph the kernels do not take."""
-    lib = _load()
     if S > lib.satpu_den_max_states():
         raise ValueError(f"den graph of {S} states and {nnz} arcs: the kernels take at"
                          f" most {lib.satpu_den_max_states()} states")
     need = lib.satpu_den_smem_bytes(S, nnz, backward, True)
-    return lib, ("shared" if need <= _SMEM_LIMIT else "global")
+    return "shared" if need <= cuda_build.SMEM_LIMIT else "global"
 
 
 class _DenScan(torch.autograd.Function):

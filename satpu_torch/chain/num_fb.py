@@ -33,13 +33,11 @@ backward: the recursion runs once each way a training step.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils.trace import count
+from ..utils import cuda_build
 from .den_fb import NEG_INF, rescaled_logsumexp_step
 
 GRAPH_KEYS = ("arc_src", "arc_dst", "arc_pdf", "arc_logprob", "start_logprob",
@@ -134,15 +132,17 @@ def num_arcs(graphs: Dict[str, torch.Tensor], num_pdfs: int) -> NumArcs:
                    i32(by_pdf))
 
 
-def _check(loglikes, graphs, num_frames):
-    """(device, B, T, P, S, E) after checking types, shapes and devices."""
+def _check(loglikes, graphs, num_frames, *more):
+    """(device, B, T, P, S, E) after checking devices (``cuda_build.device_of``
+    over these tensors and ``more``), types and shapes."""
+    tensors = [loglikes, *(graphs[k] for k in GRAPH_KEYS if k in graphs), *more]
+    if num_frames is not None:
+        tensors.append(num_frames)
+    dev = cuda_build.device_of("numerator", *tensors)
     if loglikes.dtype != torch.float32:
         raise TypeError(f"numerator: loglikes must be float32, got {loglikes.dtype}")
     if loglikes.ndim != 3:
         raise ValueError(f"numerator: loglikes must be [B, T, P], got {tuple(loglikes.shape)}")
-    dev = loglikes.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"numerator runs on cpu or cuda, not {dev}")
     B, T, P = loglikes.shape
     missing = [k for k in GRAPH_KEYS if k not in graphs]
     if missing:
@@ -157,16 +157,14 @@ def _check(loglikes, graphs, num_frames):
                 x.dtype.is_floating_point or x.dtype == torch.bool):
             raise TypeError(f"numerator: {k} must be {'float32' if floating else 'integer'},"
                             f" got {x.dtype}")
-        if tuple(x.shape) != want or x.device != dev:
-            raise ValueError(f"numerator: {k} must be {list(want)} on {dev}, got"
-                             f" {tuple(x.shape)} on {x.device}")
+        if tuple(x.shape) != want:
+            raise ValueError(f"numerator: {k} must be {list(want)}, got {tuple(x.shape)}")
     if E == 0 or S == 0:
         raise ValueError(f"numerator: graphs of {S} states and {E} arcs")
-    if num_frames is not None and (tuple(num_frames.shape) != (B,) or num_frames.device != dev
+    if num_frames is not None and (tuple(num_frames.shape) != (B,)
                                    or num_frames.dtype.is_floating_point):
-        raise ValueError(f"numerator: num_frames must be integer [{B}] on {dev}, got"
-                         f" {num_frames.dtype} {tuple(num_frames.shape)} on"
-                         f" {num_frames.device}")
+        raise ValueError(f"numerator: num_frames must be integer [{B}], got"
+                         f" {num_frames.dtype} {tuple(num_frames.shape)}")
     return dev, B, T, P, S, E
 
 
@@ -193,13 +191,9 @@ def num_fb_forward(loglikes, graphs, num_frames=None, arcs: Optional[NumArcs] = 
     value = torch.empty((B,), device=dev, dtype=torch.float32)
     ins = [loglikes.contiguous(), *arcs[:4], graphs["start_logprob"].contiguous(),
            graphs["final_logprob"].contiguous(), _frames(num_frames, B, T, dev)]
-    with torch.cuda.device(dev):  # the C entry point launches on the current device
-        err = lib.satpu_num_fwd(*(x.data_ptr() for x in ins), alphas.data_ptr(), m.data_ptr(),
-                                value.data_ptr(), B, T, P, S, E,
-                                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_num_fwd launch failed: CUDA error {err}")
-    count("k3f.launches")
+    cuda_build.launch(lib.satpu_num_fwd, *(x.data_ptr() for x in ins), alphas.data_ptr(),
+                      m.data_ptr(), value.data_ptr(), B, T, P, S, E, device=dev,
+                      counter="k3f.launches")
     return value, alphas, m
 
 
@@ -210,7 +204,7 @@ def num_fb_backward(loglikes, graphs, num_frames, alphas, m, value,
     once (one count in ``k3b.launches``) into a zero-filled buffer, on the
     CPU it runs ``num_fb_backward_plain`` (the plain forward again and its
     autograd)."""
-    dev, B, T, P, S, E = _check(loglikes, graphs, num_frames)
+    dev, B, T, P, S, E = _check(loglikes, graphs, num_frames, alphas, m, value)
     if (tuple(alphas.shape) != (B, T + 1, S) or tuple(m.shape) != (B, T)
             or tuple(value.shape) != (B,)):
         raise ValueError(f"numerator: alphas {tuple(alphas.shape)}, m {tuple(m.shape)}, value"
@@ -223,41 +217,19 @@ def num_fb_backward(loglikes, graphs, num_frames, alphas, m, value,
     ins = [loglikes.contiguous(), *arcs, graphs["final_logprob"].contiguous(),
            _frames(num_frames, B, T, dev), alphas.contiguous(), m.contiguous(),
            value.contiguous()]
-    with torch.cuda.device(dev):
-        err = lib.satpu_num_bwd(*(x.data_ptr() for x in ins), posts.data_ptr(), B, T, P, S, E,
-                                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_num_bwd launch failed: CUDA error {err}")
-    count("k3b.launches")
+    cuda_build.launch(lib.satpu_num_bwd, *(x.data_ptr() for x in ins), posts.data_ptr(),
+                      B, T, P, S, E, device=dev, counter="k3b.launches")
     return posts
-
-
-_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
-
-
-@functools.lru_cache(maxsize=None)
-def _load():
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("num_fb")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.satpu_num_smem_bytes.restype = ctypes.c_longlong
-    lib.satpu_num_smem_bytes.argtypes = [i, i, i]
-    lib.satpu_num_fwd.restype = i
-    lib.satpu_num_fwd.argtypes = [p] * 11 + [i] * 5 + [p]
-    lib.satpu_num_bwd.restype = i
-    lib.satpu_num_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
-    return lib
 
 
 def _lib(S: int, E: int):
     """The library, after checking that a row of S states and E arcs fits a
     block's shared memory in both kernels; ValueError otherwise."""
-    lib = _load()
+    lib = cuda_build.load("num_fb")
     need = max(lib.satpu_num_smem_bytes(S, E, 0), lib.satpu_num_smem_bytes(S, E, 1))
-    if need > _SMEM_LIMIT:
+    if need > cuda_build.SMEM_LIMIT:
         raise ValueError(f"numerator graphs of {S} states and {E} arcs a row need {need} bytes"
-                         f" of shared memory; the kernels take at most {_SMEM_LIMIT}")
+                         f" of shared memory; the kernels take at most {cuda_build.SMEM_LIMIT}")
     return lib
 
 

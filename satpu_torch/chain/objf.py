@@ -166,22 +166,21 @@ def _try_factor_den(g: GraphArrays, max_dense: int = 32_000_000) -> Optional[Den
 
 
 def den_forward(loglikes: torch.Tensor, den: DenominatorGraph,
-                leaky_hmm_coefficient: float = 1e-5,
-                use_factored: Optional[bool] = None) -> torch.Tensor:
+                leaky_hmm_coefficient: float = 1e-5) -> torch.Tensor:
     """Batched denominator log-prob. loglikes [B, T, P] -> [B].
 
-    The factored branch gathers each state's emission scores for all frames
-    (``loglikes[..., pdf_fwd]``, ``loglikes[..., pdf_self]``) and runs the
-    recursion through ``den_fb.den_scan`` (kernels K2f/K2b on the card, the
-    plain version on the CPU); the per-arc branch is plain torch."""
+    A factored graph (``den.factored``) takes the factored branch, any other
+    the per-arc one. The factored branch gathers each state's emission
+    scores for all frames (``loglikes[..., pdf_fwd]``,
+    ``loglikes[..., pdf_self]``) and runs the recursion through
+    ``den_fb.den_scan`` (kernels K2f/K2b on the card, the plain version on
+    the CPU); the per-arc branch is plain torch."""
     g = den.tensors(loglikes.device)
     B = loglikes.shape[0]
     S = den.num_states
     log_init = g["log_init"]
-    if use_factored is None:
-        use_factored = den.factored is not None
     alpha0 = g["start"].expand(B, S).contiguous()
-    if use_factored:
+    if den.factored is not None:
         llf = loglikes.index_select(-1, g["pdf_fwd"])
         lls = loglikes.index_select(-1, g["pdf_self"])
         log_leak = leak_log(leaky_hmm_coefficient)

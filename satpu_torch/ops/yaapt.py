@@ -20,7 +20,6 @@ compacted nonzero spectral track, spec_pitch[0:2] overwritten with [2:4]).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Dict, Optional, Tuple
@@ -30,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..utils.trace import count, span
+from ..utils import cuda_build
+from ..utils.trace import span
 from . import device_array
 
 INF = 1e30
@@ -193,6 +193,7 @@ def viterbi_path(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     instantiations, any other C the generic one. On a CPU tensor it computes
     the plain version, at any C. Any other device raises.
     """
+    dev = cuda_build.device_of("viterbi_path", local, trans)
     if local.ndim != 3 or trans.ndim != 4:
         raise ValueError(f"viterbi_path wants local [B, C, T] and trans [B, C, C, T], got"
                          f" {tuple(local.shape)} and {tuple(trans.shape)}")
@@ -202,30 +203,20 @@ def viterbi_path(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
                          f" got {tuple(trans.shape)}")
     if local.dtype != torch.float32 or trans.dtype != torch.float32:
         raise TypeError(f"viterbi_path wants float32, got {local.dtype} and {trans.dtype}")
-    if trans.device != local.device:
-        raise ValueError(f"viterbi_path's inputs are on {local.device} and {trans.device}")
-    if local.device.type == "cpu":
+    if dev.type == "cpu":
         return viterbi_path_plain(local, trans)
-    if local.device.type != "cuda":
-        raise ValueError(f"viterbi_path runs on cpu or cuda, not {local.device}")
     if C > VITERBI_MAX_CANDIDATES:
         raise ValueError(f"the Viterbi kernel takes 1..{VITERBI_MAX_CANDIDATES} candidates,"
                          f" got {C}")
-    path = torch.empty((B, T), device=local.device, dtype=torch.int64)
+    path = torch.empty((B, T), device=dev, dtype=torch.int64)
     if B == 0:
         return path
-    lib = _viterbi_lib()
+    lib = cuda_build.load("viterbi")
     scratch = lib.satpu_viterbi_scratch_bytes(C, T)
-    back = torch.empty((B, scratch), device=local.device, dtype=torch.uint8) if scratch else None
-    # the C entry point launches on the current device
-    with torch.cuda.device(local.device):
-        err = lib.satpu_viterbi_path(local.data_ptr(), *local.stride(), trans.data_ptr(),
-                                     *trans.stride(), path.data_ptr(),
-                                     back.data_ptr() if scratch else None, B, C, T,
-                                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_viterbi_path launch failed: CUDA error {err}")
-    count("k4.launches")
+    back = torch.empty((B, scratch), device=dev, dtype=torch.uint8) if scratch else None
+    cuda_build.launch(lib.satpu_viterbi_path, local.data_ptr(), *local.stride(), trans.data_ptr(),
+                      *trans.stride(), path.data_ptr(), back.data_ptr() if scratch else None,
+                      B, C, T, device=dev, counter="k4.launches")
     return path
 
 
@@ -245,20 +236,6 @@ def viterbi_path_op(local: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
 @viterbi_path_op.register_fake
 def _viterbi_path_fake(local, trans):
     return local.new_empty((local.shape[0], local.shape[2]), dtype=torch.int64)
-
-
-@functools.lru_cache(maxsize=None)
-def _viterbi_lib():
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("viterbi")
-    lib.satpu_viterbi_path.restype = ctypes.c_int
-    lib.satpu_viterbi_path.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.satpu_viterbi_scratch_bytes.restype = ctypes.c_longlong
-    lib.satpu_viterbi_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -319,23 +296,22 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     kernel runs on ``mag``'s card, whichever device is current. The
     kernel takes 1 to ``SHC_MAX_HARMONICS`` harmonics (a CUDA call with more
     raises ValueError); (n_harm, window_length) = (4, 21) runs
-    its unrolled instantiation, any other its generic one (recorded in
-    ``shc_band.instantiation``); a geometry whose staged frames do not fit a
+    its unrolled instantiation, any other its generic one
+    (``shc_instantiation``); a geometry whose staged frames do not fit a
     block's shared memory raises RuntimeError. A non-contiguous ``mag`` is
     copied to a contiguous one; a storage offset needs no alignment beyond a
     float's (the kernel then copies ``mag`` in 4-byte pieces, else in 16-byte
     ones).
     """
+    dev = cuda_build.device_of("shc_band", mag)
     if mag.ndim != 2:
         raise ValueError(f"shc_band wants mag [F, M], got {tuple(mag.shape)}")
     n_frames, M = mag.shape
     deepest = (min_shc + n_out - 1) * n_harm + window_length - 1
     if deepest >= M:
         raise ValueError(f"shc_band reads column {deepest} of a {M}-column mag")
-    if mag.device.type == "cpu":
+    if dev.type == "cpu":
         return shc_band_plain(mag, min_shc, n_out, n_harm, window_length)
-    if mag.device.type != "cuda":
-        raise ValueError(f"shc_band runs on cpu or cuda, not {mag.device}")
     if not (1 <= n_harm <= SHC_MAX_HARMONICS and min_shc >= 0 and n_out >= 1
             and window_length >= 1):
         raise ValueError(f"the SHC kernel takes 1..{SHC_MAX_HARMONICS} harmonics, min_shc >= 0"
@@ -344,24 +320,16 @@ def shc_band(mag: torch.Tensor, min_shc: int, n_out: int, n_harm: int,
     if mag.dtype != torch.float32:
         raise TypeError(f"shc_band wants float32, got {mag.dtype}")
     mag = mag.contiguous()
-    out = torch.empty((n_frames, n_out), device=mag.device, dtype=torch.float32)
+    out = torch.empty((n_frames, n_out), device=dev, dtype=torch.float32)
     if n_frames == 0:
         return out
-    lib = _shc_lib()
-    # the C entry point configures and launches on the current device
-    with torch.cuda.device(mag.device):
-        err = lib.satpu_shc_band(mag.data_ptr(), out.data_ptr(), n_frames, M, min_shc,
-                                 n_out, n_harm, window_length,
-                                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"satpu_shc_band launch failed: CUDA error {err}")
-    count("k1.launches")
-    shc_band.instantiation = _shc_instantiation(n_harm, window_length)
+    cuda_build.launch(cuda_build.load("shc").satpu_shc_band, mag.data_ptr(), out.data_ptr(),
+                      n_frames, M, min_shc, n_out, n_harm, window_length, device=dev,
+                      counter="k1.launches")
     return out
 
 
 SHC_MAX_HARMONICS = 6  # kMaxH of csrc/shc.cu
-shc_band.instantiation = None
 
 
 @torch.library.custom_op("satpu_torch::shc_band", mutates_args=(), device_types=("cpu", "cuda"))
@@ -380,24 +348,11 @@ def _shc_band_fake(mag, min_shc, n_out, n_harm, window_length):
     return mag.new_empty((mag.shape[0], n_out), dtype=torch.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _shc_instantiation(n_harm: int, window_length: int) -> str:
-    return "fixed" if _shc_lib().satpu_shc_fixed(n_harm, window_length) else "generic"
-
-
-@functools.lru_cache(maxsize=None)
-def _shc_lib():
-    from ..utils import cuda_build
-
-    lib = cuda_build.load("shc")
-    lib.satpu_shc_band.restype = ctypes.c_int
-    lib.satpu_shc_band.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    lib.satpu_shc_fixed.restype = ctypes.c_int
-    lib.satpu_shc_fixed.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.satpu_shc_layout.restype = ctypes.c_int
-    lib.satpu_shc_layout.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    return lib
+def shc_instantiation(n_harm: int, window_length: int) -> str:
+    """The instantiation of K1 that ``shc_band`` runs on the card for
+    (n_harm, window_length): "fixed" (the unrolled one) or "generic". Needs
+    the kernel's library, so the CUDA toolkit."""
+    return "fixed" if cuda_build.load("shc").satpu_shc_fixed(n_harm, window_length) else "generic"
 
 
 def shc_params(nfft: int, p: Dict[str, float]) -> Dict[str, int]:

@@ -71,8 +71,15 @@ def test_den_forward_matches_satpu(setup, factored, monkeypatch):
     f = lambda x: jden(x, s["jden"], 1e-5, use_factored=factored)
     ref = np.asarray(f(jnp.asarray(s["chain_out"])))
     g_ref = np.asarray(jax.grad(lambda x: jnp.sum(f(x)))(jnp.asarray(s["chain_out"])))
+    # the per-arc branch: the same graph with no factored form, as a graph
+    # that cannot be factored (or is too large to) reaches it
+    den = s["tden"] if factored else tobjf.DenominatorGraph(
+        *(getattr(s["tden"], k) for k in ("arc_src", "arc_dst", "arc_pdf", "arc_logprob",
+                                           "start_logprob", "final_logprob", "initial_probs",
+                                           "num_pdfs")), factored=None)
+    assert (den.factored is not None) == factored
     x = _t(s["chain_out"], True)
-    out = tobjf.den_forward(x, s["tden"], 1e-5, use_factored=factored)
+    out = tobjf.den_forward(x, den, 1e-5)
     out.sum().backward()
     assert rel_err(out.detach().numpy(), ref) <= 1e-4
     assert rel_err(x.grad.numpy(), g_ref) <= 1e-4

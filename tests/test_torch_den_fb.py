@@ -235,7 +235,9 @@ def test_den_cuda_kernels_match_plain(shape):
             v.sum().backward()
             outs.append((v.detach(), x1.grad, x2.grad))
         torch.cuda.synchronize()
-        assert den_fb.den_fb_forward.placement == den_fb.den_fb_backward.placement == placement
+        nnz = g["A_sparse"].in_src.numel()
+        assert den_fb.placement(den.num_states, nnz, backward=False) == placement
+        assert den_fb.placement(den.num_states, nnz, backward=True) == placement
         (v, gf, gs), again, (v_p, gf_p, gs_p) = outs
         assert all(torch.equal(a, b) for a, b in zip((v, gf, gs), again))
         assert ((v - v_p).abs().max() / v_p.abs().max()).item() <= 1e-5

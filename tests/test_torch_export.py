@@ -39,11 +39,13 @@ def _run_fresh(pt2, args, tmp_path):
                            str(tmp_path / "out.pt")], cwd=ROOT, capture_output=True,
                           text=True, timeout=180, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    # the op's registration and the recorder its wrapper counts launches in
-    # (``satpu_torch.utils`` imports its host utilities beside it): no model
+    # the op's registration, the kernel boundary its wrapper launches through
+    # and the recorder that counts the launches (``satpu_torch.utils``
+    # imports its host utilities beside them): no model
     assert proc.stdout.split("\n")[-2] == str([
         "satpu_torch", "satpu_torch.ops", "satpu_torch.ops.yaapt", "satpu_torch.utils",
-        "satpu_torch.utils.checkpoint", "satpu_torch.utils.config", "satpu_torch.utils.kaldi_data",
+        "satpu_torch.utils.checkpoint", "satpu_torch.utils.config",
+        "satpu_torch.utils.cuda_build", "satpu_torch.utils.kaldi_data",
         "satpu_torch.utils.scp_io", "satpu_torch.utils.trace"])
     return torch.load(str(tmp_path / "out.pt"))
 

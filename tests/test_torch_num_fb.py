@@ -22,6 +22,7 @@ from satpu_torch.chain.fst import GraphArrays, fst_rmepsilon, fst_to_arrays, pad
 from satpu_torch.chain.objf import (DenominatorGraph, chain_objf_and_grad, compute_chain_objf,
                                     den_forward, graphs_to_torch)
 from satpu_torch.chain.prep import numerator_fst, random_bigram_den, random_phone_walk
+from satpu_torch.utils import cuda_build
 from satpu_torch.utils.trace import counters
 
 KINDS = ("walks", "optional_sil", "unreachable")
@@ -398,9 +399,9 @@ def test_num_cuda_kernels_at_their_limits():
     ValueError."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the numerator kernels have no CPU mode")
-    lib = num_fb._load()
+    lib = cuda_build.load("num_fb")
     fits = lambda S, E: max(lib.satpu_num_smem_bytes(S, E, 0),
-                            lib.satpu_num_smem_bytes(S, E, 1)) <= num_fb._SMEM_LIMIT
+                            lib.satpu_num_smem_bytes(S, E, 1)) <= cuda_build.SMEM_LIMIT
     P, rng = 3280, np.random.default_rng(19)
     E_max = max(E for E in range(1, 20000) if fits(1024, E))
     S_max = max(S for S in range(1000, 20000) if fits(S, 1000))

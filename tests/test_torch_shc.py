@@ -163,11 +163,11 @@ def _card_vs_plain(mag, *args):
 
 @pytest.mark.gpu
 def test_shc_cuda_kernel_matches_plain(cuda):
-    from satpu_torch.ops.yaapt import shc_band
+    from satpu_torch.ops.yaapt import shc_instantiation
 
     _, rel = _card_vs_plain(torch.from_numpy(_mag(3001)).cuda(), MIN_SHC, I, H, J)
     assert rel <= 1e-5
-    assert shc_band.instantiation == "fixed"
+    assert shc_instantiation(H, J) == "fixed"
 
 
 @pytest.mark.gpu
@@ -188,24 +188,24 @@ def test_shc_cuda_kernel_ragged_and_serving_frames(cuda, F):
 def test_shc_cuda_kernel_fixed_geometry_other_row_widths(cuda, m, min_shc):
     """The unrolled instantiation at every row width modulo 4 (its staging
     is specialised on it) and other first candidates."""
-    from satpu_torch.ops.yaapt import shc_band
+    from satpu_torch.ops.yaapt import shc_instantiation
 
     mag = torch.from_numpy(np.random.default_rng(m).random((203, m)).astype(np.float32)).cuda()
     _, rel = _card_vs_plain(mag, min_shc, I, H, J)
     assert rel <= 1e-5
-    assert shc_band.instantiation == "fixed"
+    assert shc_instantiation(H, J) == "fixed"
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("opts,n_harm,win", OTHER_GEOMETRIES)
 def test_shc_cuda_kernel_generic_geometries(cuda, opts, n_harm, win):
-    from satpu_torch.ops.yaapt import shc_band
+    from satpu_torch.ops.yaapt import shc_band, shc_instantiation
 
     args, m = _geometry(opts)
     mag = torch.from_numpy(np.random.default_rng(5).random((1001, m)).astype(np.float32)).cuda()
     out, rel = _card_vs_plain(mag, *args)
     assert rel <= 1e-5
-    assert shc_band.instantiation == "generic"
+    assert shc_instantiation(n_harm, win) == "generic"
     assert torch.equal(out, shc_band(mag, *args))
 
 
@@ -247,7 +247,7 @@ def test_shc_cuda_kernel_launches_on_its_tensors_card(two_cards, geometry):
     again (each card keeps its own launch configuration): the plain
     version's output on the tensor's card, two calls bitwise equal, one
     launch a call, and cuda:0 still current."""
-    from satpu_torch.ops.yaapt import shc_band
+    from satpu_torch.ops.yaapt import shc_band, shc_instantiation
 
     args, m = ((MIN_SHC, I, H, J), M) if geometry == "fixed" else _geometry(
         OTHER_GEOMETRIES[0][0])
@@ -258,5 +258,5 @@ def test_shc_cuda_kernel_launches_on_its_tensors_card(two_cards, geometry):
             out, rel = _card_vs_plain(x, *args)
             assert out.device == x.device and rel <= 1e-5
             assert torch.equal(out, shc_band(x, *args))
-            assert shc_band.instantiation == geometry
+            assert shc_instantiation(*args[2:]) == geometry
             assert torch.cuda.current_device() == 0

@@ -13,6 +13,7 @@ import torch
 from satpu_torch.bin.pipeline import DEFAULT_BUCKETS
 from satpu_torch.models.anonymizer import YAAPT_OPTS
 from satpu_torch.ops import yaapt as Y
+from satpu_torch.utils import cuda_build
 
 P = Y._merged_params(YAAPT_OPTS)
 # the frames of each serving rung (50 ... 1000), LibriSpeech's longest
@@ -198,7 +199,7 @@ def test_k4_reads_a_transposed_view_without_a_copy(cuda, C):
 def test_k4_backpointers_in_device_memory(cuda, C, kind):
     """A T whose C T backpointer bytes do not fit a block's shared memory
     takes the wrapper's device-memory scratch."""
-    lib = Y._viterbi_lib()
+    lib = cuda_build.load("viterbi")
     T = 8000
     while not lib.satpu_viterbi_scratch_bytes(C, T):
         T *= 2
